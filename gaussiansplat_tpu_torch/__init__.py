@@ -1,0 +1,11 @@
+"""gaussiansplat_tpu_torch: the PyTorch/CUDA port of gaussiansplat_tpu.
+
+A second package beside the JAX reference, with the same module names. Plain
+tensor code is PyTorch; the TPU's Pallas kernels are rewritten by hand in
+CUDA C++ for sm_90a (csrc/) and built at first use. It imports neither JAX
+nor the reference package. Entry point: `render.render(model, camera)`.
+"""
+
+from .config import MeshConfig, RasterConfig, TrainConfig
+
+__all__ = ["MeshConfig", "RasterConfig", "TrainConfig"]

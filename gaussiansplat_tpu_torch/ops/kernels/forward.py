@@ -1,0 +1,90 @@
+"""K1, the forward tile rasterizer: CUDA kernel (csrc/forward.cu) and its
+plain version (ops/tile_raster.rasterize_forward_torch).
+
+Input: the (P, 16) f32 payload rows in sorted (tile, depth) order and the
+(T + 1,) int32 tile segment offsets. Output: the (T, 8, tile_size^2) f32
+block with rows R, G, B, logT, weight sum, depth sum, chunks composited, 0
+(the layout of the TPU kernel, ops/pallas/forward.py in the reference).
+
+The kernel reads f32 channels and computes the unpacked semantics whatever
+`cfg.packed` says: the TPU's 8-lane bf16 packing was a bandwidth device for
+that chip, so the port differs from the reference's packed Pallas path by
+that path's ~0.4% colour/opacity quantization, not by a fault.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ...config import RasterConfig
+from ..binning import tile_grid
+from ..projection import PAYLOAD_DIM
+from ..tile_raster import log_trans_eps, rasterize_forward_torch
+from .build import CudaKernel
+from .common import NOUT
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+FORWARD = CudaKernel(
+    "forward.cu", "gs_rasterize_forward",
+    # payload, tile_starts, num_tiles, tile_size, chunk_size, tiles_x,
+    # tile_row0, alpha_min, alpha_max, sigma_sq, log_eps, out, stream
+    [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+)
+
+__all__ = ["FORWARD", "rasterize_forward_cuda", "rasterize_forward_torch"]
+
+
+def _check_tile_size(tile_size: int) -> None:
+    """One block of tile_size^2 threads renders a tile: at most 1024."""
+    if not 1 <= tile_size <= 32:
+        raise ValueError(
+            f"the forward kernel requires 1 <= tile_size <= 32 (got "
+            f"{tile_size}): one thread per pixel, 1024 threads per block")
+
+
+def rasterize_forward_cuda(
+    sorted_payload: torch.Tensor,   # (P, 16) f32, CUDA, contiguous
+    tile_starts: torch.Tensor,      # (T + 1,) int32, CUDA
+    width: int,
+    height: int,
+    cfg: RasterConfig,
+    tile_row0: int = 0,
+    tile_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch K1 on the current stream; returns the (T, 8, tile_px) block."""
+    _check_tile_size(cfg.tile_size)
+    tiles_x, tiles_y = tile_grid(width, height, cfg.tile_size)
+    num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
+    if sorted_payload.device.type != "cuda" or tile_starts.device.type != "cuda":
+        raise ValueError("rasterize_forward_cuda needs CUDA tensors")
+    if sorted_payload.dtype != torch.float32 or sorted_payload.ndim != 2 \
+            or sorted_payload.shape[1] != PAYLOAD_DIM:
+        raise ValueError(f"payload must be (P, {PAYLOAD_DIM}) float32, got "
+                         f"{tuple(sorted_payload.shape)} {sorted_payload.dtype}")
+    if tile_starts.dtype != torch.int32 or tuple(tile_starts.shape) != (num_tiles + 1,):
+        raise ValueError(f"tile_starts must be ({num_tiles + 1},) int32, got "
+                         f"{tuple(tile_starts.shape)} {tile_starts.dtype}")
+    if not (sorted_payload.is_contiguous() and tile_starts.is_contiguous()):
+        raise ValueError("payload and tile_starts must be contiguous")
+    if cfg.chunk_size * 10 * 4 > 48 * 1024:
+        raise ValueError(f"chunk_size {cfg.chunk_size} exceeds 48 KB of "
+                         "shared memory per block")
+    px = cfg.tile_size * cfg.tile_size
+    out = torch.empty((num_tiles, NOUT, px), dtype=torch.float32,
+                      device=sorted_payload.device)
+    if num_tiles == 0:
+        return out
+    stream = torch.cuda.current_stream(sorted_payload.device).cuda_stream
+    FORWARD.launch(
+        sorted_payload.data_ptr(), tile_starts.data_ptr(), num_tiles,
+        cfg.tile_size, cfg.chunk_size, tiles_x, int(tile_row0),
+        cfg.alpha_min, cfg.alpha_max, cfg.sigma_radius * cfg.sigma_radius,
+        log_trans_eps(cfg), out.data_ptr(), stream,
+    )
+    return out

@@ -1,0 +1,160 @@
+"""Tile-grid image helpers and the plain PyTorch version of the forward
+raster kernel (K1, ops/kernels/forward.py).
+
+`rasterize_forward_torch` computes exactly what the kernel computes, batched
+over tiles: each tile walks its depth-sorted segment in chunk_size windows
+aligned down to a multiple of chunk_size, gates alpha at alpha_min and
+q <= sigma^2, composites front to back in log-transmittance (within a chunk
+by a cumulative sum of log1p(-alpha)), and stops after the first chunk in
+which every pixel's logT <= log(trans_eps). It is built from differentiable
+operations, so autograd runs through it on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import RasterConfig
+from .binning import tile_grid
+from .kernels.common import NOUT
+from .projection import PAYLOAD_DIM
+
+
+class RasterOut(NamedTuple):
+    image: torch.Tensor              # (H, W, 3)
+    transmittance: torch.Tensor      # (H, W) final T per pixel
+    max_chunks_needed: torch.Tensor  # () int32 longest tile list, in chunks
+
+
+def tiles_to_image(tiles: torch.Tensor, width: int, height: int,
+                   tile_size: int) -> torch.Tensor:
+    """(num_tiles, tile_px[, C]) -> (H, W[, C])."""
+    squeeze = tiles.ndim == 2
+    if squeeze:
+        tiles = tiles[..., None]
+    tx, ty = tile_grid(width, height, tile_size)
+    c = tiles.shape[-1]
+    img = tiles.reshape(ty, tx, tile_size, tile_size, c)
+    img = img.permute(0, 2, 1, 3, 4).reshape(ty * tile_size, tx * tile_size, c)
+    img = img[:height, :width]
+    return img[..., 0] if squeeze else img
+
+
+def image_to_tiles(img: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(H, W[, C]) -> (num_tiles, tile_px[, C]), zero-padded to tile multiples."""
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w, c = img.shape
+    tx, ty = tile_grid(w, h, tile_size)
+    img = torch.nn.functional.pad(
+        img, (0, 0, 0, tx * tile_size - w, 0, ty * tile_size - h))
+    t = img.reshape(ty, tile_size, tx, tile_size, c).permute(0, 2, 1, 3, 4)
+    t = t.reshape(ty * tx, tile_size * tile_size, c)
+    return t[..., 0] if squeeze else t
+
+
+def log_trans_eps(cfg: RasterConfig) -> float:
+    """The early-exit threshold on logT (-1e30, i.e. never, if trans_eps <= 0)."""
+    return math.log(cfg.trans_eps) if cfg.trans_eps > 0 else -1e30
+
+
+# Tiles composited together by the plain version: bounds its (tiles, px,
+# chunk) intermediates to ~32M elements each.
+_TILE_BATCH_ELEMS = 1 << 25
+
+
+def rasterize_forward_torch(
+    sorted_payload: torch.Tensor,   # (P, 16) rows in (tile, depth) order
+    tile_starts: torch.Tensor,      # (T + 1,) int32
+    width: int,
+    height: int,
+    cfg: RasterConfig,
+    tile_row0: int = 0,
+    tile_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of K1. Returns the (T, NOUT, tile_px) block: rows R, G,
+    B, logT, weight sum, depth sum, chunks composited (as f32), 0."""
+    ts, cs = cfg.tile_size, cfg.chunk_size
+    px = ts * ts
+    tiles_x, tiles_y = tile_grid(width, height, ts)
+    num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
+    device = sorted_payload.device
+    log_eps = log_trans_eps(cfg)
+    sigma_sq = cfg.sigma_radius * cfg.sigma_radius
+
+    # Aligned windows may reach up to cs rows past the last pair.
+    payload = torch.cat([
+        sorted_payload,
+        torch.zeros((cs, PAYLOAD_DIM), dtype=sorted_payload.dtype, device=device),
+    ])
+    idx = torch.arange(px, device=device)
+    xl = (idx % ts).to(torch.float32)[None, :, None]
+    yl = (idx // ts).to(torch.float32)[None, :, None]
+    lane = torch.arange(cs, device=device, dtype=torch.int64)
+
+    starts_all = tile_starts[:-1].to(torch.int64)
+    ends_all = tile_starts[1:].to(torch.int64)
+    batch = max(1, _TILE_BATCH_ELEMS // (px * cs))
+    blocks = []
+    for t0 in range(0, num_tiles, batch):
+        t = torch.arange(t0, min(t0 + batch, num_tiles), device=device)
+        start, end = starts_all[t], ends_all[t]
+        base = torch.div(start, cs, rounding_mode="floor") * cs
+        n_chunks = torch.div(end - base + cs - 1, cs, rounding_mode="floor")
+        ox = ((t % tiles_x) * ts).to(torch.float32)[:, None]
+        oy = ((t // tiles_x + tile_row0) * ts).to(torch.float32)[:, None]
+        nb = t.shape[0]
+        acc = torch.zeros((nb, px, 5), dtype=torch.float32, device=device)
+        log_t = torch.zeros((nb, px), dtype=torch.float32, device=device)
+        alive = torch.ones((nb,), dtype=torch.bool, device=device)
+        stop = torch.zeros((nb,), dtype=torch.int64, device=device)
+        for ci in range(int(n_chunks.max().item()) if nb else 0):
+            active = alive & (ci < n_chunks)
+            if not bool(active.any()):
+                break
+            gidx = base[:, None] + ci * cs + lane[None, :]          # (B, CS)
+            chunk = payload[gidx.clamp(max=payload.shape[0] - 1)]  # (B, CS, 16)
+            in_seg = (gidx >= start[:, None]) & (gidx < end[:, None]) \
+                & active[:, None]
+            mx = (chunk[..., 0] - ox)[:, None, :]
+            my = (chunk[..., 1] - oy)[:, None, :]
+            ca = chunk[..., 2][:, None, :]
+            cb = chunk[..., 3][:, None, :]
+            cc = chunk[..., 4][:, None, :]
+            op = chunk[..., 5][:, None, :]
+            dx = xl - mx
+            dy = yl - my
+            q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy  # (B, PX, CS)
+            alpha_raw = op * torch.exp(-0.5 * q)
+            live = in_seg[:, None, :] & (alpha_raw >= cfg.alpha_min) \
+                & (q <= sigma_sq)
+            alpha = torch.where(live, torch.clamp(alpha_raw, max=cfg.alpha_max),
+                                torch.zeros_like(alpha_raw))
+            ell = torch.log1p(-alpha)
+            s_incl = torch.cumsum(ell, dim=2)
+            t_in = torch.exp(s_incl - ell + log_t[..., None])
+            w = alpha * t_in
+            feats = torch.stack(
+                [chunk[..., 6], chunk[..., 7], chunk[..., 8],
+                 torch.ones_like(chunk[..., 0]), chunk[..., 10]], dim=-1)
+            acc = acc + torch.bmm(w, feats)                          # (B, PX, 5)
+            log_t = log_t + s_incl[..., -1]
+            stop = stop + active.to(torch.int64)
+            alive = torch.where(active, log_t.max(dim=1).values > log_eps, alive)
+        rows = [acc[..., 0], acc[..., 1], acc[..., 2], log_t, acc[..., 3],
+                acc[..., 4], stop.to(torch.float32)[:, None].expand(nb, px),
+                torch.zeros_like(log_t)]
+        blocks.append(torch.stack(rows, dim=1))
+    return torch.cat(blocks) if blocks else torch.zeros(
+        (0, NOUT, px), dtype=torch.float32, device=device)
+
+
+def max_chunks_needed(tile_starts: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """() int32: the longest tile segment, in chunks."""
+    seg_len = tile_starts[1:] - tile_starts[:-1]
+    return torch.div(seg_len.max() + chunk_size - 1, chunk_size,
+                     rounding_mode="floor").to(torch.int32)

@@ -1,0 +1,73 @@
+"""Top-level render API: `render(model, camera)`.
+
+  project_gaussians   (ops/projection.py, autograd)
+  bin_gaussians       (ops/binning.py: compaction sort, the K4 expansion
+                       kernel, pair sort, segments)
+  payload gather      (sorted by (tile, depth))
+  rasterize           (the K1 forward kernel, or its plain version)
+
+It runs on the device of the model's tensors. On the card the kernels have
+no backward yet, so call it under `torch.no_grad()` (or
+`torch.inference_mode()`); on the CPU the plain versions are differentiable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .config import RasterConfig
+from .models.gaussians import GaussianModel
+from .ops.binning import resolve_impl, bin_gaussians
+from .ops.camera import Camera
+from .ops.projection import make_payload, project_gaussians
+from .ops.raster_dispatch import rasterize_payload
+
+
+@dataclasses.dataclass
+class RenderOutput:
+    image: torch.Tensor              # (H, W, 3)
+    transmittance: torch.Tensor      # (H, W)
+    radii: torch.Tensor              # (N,) int32 screen-space radius (0 = culled)
+    num_pairs: torch.Tensor          # () int32 tile/gaussian pairs binned
+    overflow: torch.Tensor           # () int32 pairs dropped (capacity exceeded)
+    max_chunks_needed: torch.Tensor  # () int32 longest tile list, in chunks
+
+
+def render(
+    model: GaussianModel,
+    camera: Camera,
+    cfg: Optional[RasterConfig] = None,
+    sh_degree: Optional[int] = None,
+    background: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> RenderOutput:
+    """Render a camera view of the model. `impl` ('auto', 'cuda', 'torch')
+    defaults to `cfg.impl`; see ops/raster_dispatch.py."""
+    cfg = cfg or RasterConfig()
+    device = model.device
+    if sh_degree is None:
+        sh_degree = model.sh_degree
+    if background is None:
+        background = torch.zeros((3,), dtype=torch.float32, device=device)
+    if camera.device != device:
+        camera = camera.to(device)
+    impl = resolve_impl(impl if impl is not None else cfg.impl, device)
+
+    proj = project_gaussians(
+        model.means, model.quats, model.log_scales, model.logit_opacities,
+        model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
+    )
+    binning = bin_gaussians(proj, camera.width, camera.height, cfg, impl=impl)
+    out = rasterize_payload(make_payload(proj), binning, background,
+                            camera.width, camera.height, cfg, impl)
+    return RenderOutput(
+        image=out.image,
+        transmittance=out.transmittance,
+        radii=proj.radius,
+        num_pairs=binning.num_pairs,
+        overflow=binning.overflow,
+        max_chunks_needed=out.max_chunks_needed,
+    )
