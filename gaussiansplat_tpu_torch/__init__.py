@@ -3,7 +3,8 @@
 A second package beside the JAX reference, with the same module names. Plain
 tensor code is PyTorch; the TPU's Pallas kernels are rewritten by hand in
 CUDA C++ for sm_90a (csrc/) and built at first use. It imports neither JAX
-nor the reference package. Entry point: `render.render(model, camera)`.
+nor the reference package. Entry points: `render.render(model, camera)`
+and the training step of `train` (`init_train_state`, `make_train_step`).
 """
 
 from .config import MeshConfig, RasterConfig, TrainConfig

@@ -1,14 +1,14 @@
 """Configuration dataclasses of the PyTorch/CUDA port.
 
 Copies of the reference package's `RasterConfig`, `TrainConfig` and
-`MeshConfig` (same fields, same defaults), kept here so the port imports
-nothing of the JAX package. Two fields read differently in the port:
+`MeshConfig` (same defaults), kept here so the port imports nothing of the
+JAX package. `RasterConfig` differs in two ways:
 
 * `impl` selects the rasterizer backend: 'auto' (CUDA tensors use the
   hand-written kernels, CPU tensors their plain PyTorch versions), 'cuda'
   or 'torch' (see ops/raster_dispatch.py).
-* `packed` has no effect. On the TPU it moves pairs as 8 bf16-packed lanes
-  to halve HBM traffic; the port always computes the unpacked f32 semantics.
+* the reference's `packed` is gone: the port always computes the unpacked
+  f32 semantics.
 """
 
 from __future__ import annotations
@@ -63,9 +63,6 @@ class RasterConfig:
 
     # 'auto', 'cuda' or 'torch' (see module docstring).
     impl: str = "auto"
-
-    # No effect in the port (see module docstring).
-    packed: bool = True
 
     def pair_capacity(self, num_gaussians: int) -> int:
         cap = int(self.pairs_per_gaussian * num_gaussians)

@@ -36,15 +36,18 @@
 // basis, triangular-matmul prefix sums, bf16 Dekker splits) is not carried
 // over. q is evaluated with explicitly rounded multiplies and adds (no FMA
 // contraction) in the order of the plain version, so the alpha gates flip
-// only where exp / log1p round differently.
+// only where exp / log1p round differently; the staging and the gates live
+// in raster_common.cuh, which the backward kernel (backward.cu) shares.
 
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
-constexpr int kNch = 16;     // payload channels per row
-constexpr int kLane = 10;    // staged floats per pair
-constexpr int kNout = 8;     // output rows per tile
+using gs::kLane;
+using gs::kNch;
+using gs::kNout;
 
 __global__ void forward_kernel(
     const float* __restrict__ payload, const int* __restrict__ tile_starts,
@@ -77,30 +80,14 @@ __global__ void forward_kernel(
     const int j1 = min(end - cbase, cs);
     __syncthreads();  // every thread is done with the previous chunk
     for (int j = j0 + tid; j < j1; j += blockDim.x) {
-      const float* row = payload + static_cast<size_t>(cbase + j) * kNch;
-      float* d = lanes + j * kLane;
-      d[0] = __fsub_rn(__ldg(row + 0), ox);
-      d[1] = __fsub_rn(__ldg(row + 1), oy);
-      d[2] = __ldg(row + 2);
-      d[3] = __ldg(row + 3);
-      d[4] = __ldg(row + 4);
-      d[5] = __ldg(row + 5);
-      d[6] = __ldg(row + 6);
-      d[7] = __ldg(row + 7);
-      d[8] = __ldg(row + 8);
-      d[9] = __ldg(row + 10);
+      gs::stage_pair(payload + static_cast<size_t>(cbase + j) * kNch, ox,
+                     oy, lanes + j * kLane);
     }
     __syncthreads();
     for (int j = j0; j < j1; ++j) {
       const float* d = lanes + j * kLane;
-      const float dx = __fsub_rn(xl, d[0]);
-      const float dy = __fsub_rn(yl, d[1]);
-      const float q = __fadd_rn(
-          __fadd_rn(__fmul_rn(__fmul_rn(d[2], dx), dx),
-                    __fmul_rn(__fmul_rn(__fmul_rn(2.0f, d[3]), dx), dy)),
-          __fmul_rn(__fmul_rn(d[4], dy), dy));
-      const float a_raw = __fmul_rn(d[5], expf(__fmul_rn(-0.5f, q)));
-      if (a_raw >= alpha_min && q <= sigma_sq) {
+      float dx, dy, q, a_raw;
+      if (gs::splat_alpha(xl, yl, d, alpha_min, sigma_sq, dx, dy, q, a_raw)) {
         const float alpha = fminf(a_raw, alpha_max);
         const float w = __fmul_rn(alpha, expf(log_t));
         acc_r = __fadd_rn(acc_r, __fmul_rn(w, d[6]));

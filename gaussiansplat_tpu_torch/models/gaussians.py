@@ -55,6 +55,11 @@ class GaussianModel(nn.Module):
         return int(round((self.sh_rest.shape[1] // 3 + 1) ** 0.5)) - 1
 
     @property
+    def num_alive(self) -> torch.Tensor:
+        """() int32 number of alive slots (stays on the device)."""
+        return self.alive.sum(dtype=torch.int32)
+
+    @property
     def sh(self) -> torch.Tensor:
         """FLAT (C, 3K) SH coefficients."""
         return torch.cat([self.sh_dc, self.sh_rest], dim=1)

@@ -10,7 +10,11 @@
 4. One stable sort of the keys gives per-tile, front-to-back pair lists, and
    a searchsorted gives each tile's segment.
 
-Everything here is integer order data: no gradient flows through it.
+The binning itself is integer order data: no gradient flows through it. The
+payload gather into sorted pair order is differentiable by its own
+`torch.autograd.Function`, whose backward sums each gaussian's per-pair
+gradient rows in a fixed order (`reduce_pair_grads`, with the K3 segment
+reduce kernel, ops/kernels/segreduce.py) instead of autograd's scatter-add.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ..config import RasterConfig
 from .kernels.expand import expand_pairs_cuda, expand_pairs_torch, popcount
+from .kernels.segreduce import segment_reduce_pairs_cuda, segment_reduce_pairs_torch
 from .projection import Projected
 
 I32 = torch.int32
@@ -256,11 +261,64 @@ class TileBinning:
     sorted_pos: torch.Tensor    # (P,) int32 pre-sort pair position per sorted slot
     seg_offsets: torch.Tensor   # (N + 1,) int32 pre-sort segment start per rank
 
-    def gather_payload(self, payload: torch.Tensor) -> torch.Tensor:
+    def gather_payload(self, payload: torch.Tensor,
+                       impl: str = "auto") -> torch.Tensor:
         """Per-gaussian payload rows in sorted pair order (two gathers: N
-        rows into depth order, then P pairs from that table)."""
-        return payload.index_select(0, self.depth_order).index_select(
-            0, self.sorted_ranks)
+        rows into depth order, then P pairs from that table).
+
+        Differentiable: the backward is `reduce_pair_grads`, with the K3
+        kernel ('cuda') or its plain version ('torch'); 'auto' picks by the
+        payload's device."""
+        return _GatherSorted.apply(payload, self,
+                                   resolve_impl(impl, payload.device))
+
+
+def reduce_pair_grads(
+    dsorted: torch.Tensor,       # (P, 16) per-pair cotangents, sorted pair order
+    depth_order: torch.Tensor,   # (N,) int32 depth rank -> original index
+    sorted_pos: torch.Tensor,    # (P,) int32 pre-sort position per sorted slot
+    seg_offsets: torch.Tensor,   # (N + 1,) int32 pre-sort segment starts
+    num_pairs: torch.Tensor,     # () int32
+    impl: str,                   # 'cuda' (K3) or 'torch' (plain version)
+) -> torch.Tensor:
+    """Deterministic per-gaussian sum of per-pair gradient rows, in
+    original gaussian order (N, 16).
+
+    Un-permutes the rows to pre-sort order (a scatter through `sorted_pos`),
+    where each depth rank's pairs are contiguous and the valid pairs sit at
+    [0, num_pairs); zeroes the rows past num_pairs (garbage must not reach
+    the sums); sums each rank's segment [seg_offsets[r], seg_offsets[r+1])
+    in f32 (K3); and maps depth rank back to the original index (a scatter
+    through `depth_order`). Both are full permutations, so each scatter
+    writes every row once and is exact and deterministic. No row is rounded
+    below f32."""
+    p = dsorted.shape[0]
+    n = depth_order.shape[0]
+    dpre = torch.empty_like(dsorted).index_copy_(0, sorted_pos.long(), dsorted)
+    valid = torch.arange(p, dtype=torch.int32, device=dsorted.device) < num_pairs
+    dpre.masked_fill_(~valid[:, None], 0.0)
+    reduce = segment_reduce_pairs_cuda if impl == "cuda" else segment_reduce_pairs_torch
+    dpay_rank = reduce(dpre, seg_offsets, n)
+    return torch.empty_like(dpay_rank).index_copy_(0, depth_order.long(),
+                                                   dpay_rank)
+
+
+class _GatherSorted(torch.autograd.Function):
+    """payload[depth_order][sorted_ranks]; backward: reduce_pair_grads."""
+
+    @staticmethod
+    def forward(ctx, payload, binning, impl):
+        ctx.binning, ctx.impl = binning, impl
+        return payload.index_select(0, binning.depth_order).index_select(
+            0, binning.sorted_ranks)
+
+    @staticmethod
+    def backward(ctx, dsorted):
+        b = ctx.binning
+        dpayload = reduce_pair_grads(dsorted.contiguous(), b.depth_order,
+                                     b.sorted_pos, b.seg_offsets, b.num_pairs,
+                                     ctx.impl)
+        return dpayload, None, None
 
 
 def sort_pairs(c: CompactedRects, expanded) -> TileBinning:

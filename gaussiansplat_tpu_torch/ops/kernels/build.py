@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C launcher that takes device pointers
 and a stream and returns the launch's `cudaGetLastError()`. It is compiled
 by `nvcc` for sm_90a into its own shared library under `_build/` (listed in
 .gitignore) at first use; the library's file name carries a hash of the
-source and flags, so an edited source is never served a stale build.
+source, the shared `csrc/*.cuh` headers and the flags, so an edited source
+is never served a stale build.
 `build_all` starts one `nvcc` per source, all at once.
 
 Nothing is built or loaded when this module is imported.
@@ -61,6 +62,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

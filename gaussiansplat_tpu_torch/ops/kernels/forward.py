@@ -5,11 +5,6 @@ Input: the (P, 16) f32 payload rows in sorted (tile, depth) order and the
 (T + 1,) int32 tile segment offsets. Output: the (T, 8, tile_size^2) f32
 block with rows R, G, B, logT, weight sum, depth sum, chunks composited, 0
 (the layout of the TPU kernel, ops/pallas/forward.py in the reference).
-
-The kernel reads f32 channels and computes the unpacked semantics whatever
-`cfg.packed` says: the TPU's 8-lane bf16 packing was a bandwidth device for
-that chip, so the port differs from the reference's packed Pallas path by
-that path's ~0.4% colour/opacity quantization, not by a fault.
 """
 
 from __future__ import annotations

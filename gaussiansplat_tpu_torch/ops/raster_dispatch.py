@@ -28,9 +28,11 @@ def rasterize_payload(
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
 ) -> RasterOut:
-    """Gather the payload into sorted pair order and rasterize it."""
+    """Gather the payload into sorted pair order and rasterize it;
+    differentiable w.r.t. `payload` and `background` (backward: K2, then the
+    gather's K3 reduce, or their plain versions with impl='torch')."""
     impl = resolve_impl(impl, payload.device)
     return rasterize_tiles(
-        binning.gather_payload(payload), binning.tile_starts, background,
+        binning.gather_payload(payload, impl), binning.tile_starts, background,
         width, height, cfg, impl, tile_row0=tile_row0, tile_rows=tile_rows,
     )

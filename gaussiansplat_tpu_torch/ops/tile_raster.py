@@ -1,13 +1,20 @@
-"""Tile-grid image helpers and the plain PyTorch version of the forward
-raster kernel (K1, ops/kernels/forward.py).
+"""Tile-grid image helpers and the plain PyTorch versions of the forward
+and backward raster kernels (K1, ops/kernels/forward.py; K2,
+ops/kernels/backward.py).
 
-`rasterize_forward_torch` computes exactly what the kernel computes, batched
-over tiles: each tile walks its depth-sorted segment in chunk_size windows
+`rasterize_forward_torch` computes exactly what K1 computes, batched over
+tiles: each tile walks its depth-sorted segment in chunk_size windows
 aligned down to a multiple of chunk_size, gates alpha at alpha_min and
 q <= sigma^2, composites front to back in log-transmittance (within a chunk
 by a cumulative sum of log1p(-alpha)), and stops after the first chunk in
-which every pixel's logT <= log(trans_eps). It is built from differentiable
-operations, so autograd runs through it on the CPU.
+which every pixel's logT <= log(trans_eps).
+
+`rasterize_backward_torch` repeats K2's arithmetic the same way: it replays
+the chunks the forward composited (its stop row) in reverse, rewinds logT
+from the saved final value by cumulative sums of log1p(-alpha), and sums
+each pair's gradient row over the tile's pixels. Autograd never runs through
+either: the rasterizer's `torch.autograd.Function` (ops/kernels/rasterize.py)
+calls the backward explicitly.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import torch
 
 from ..config import RasterConfig
 from .binning import tile_grid
-from .kernels.common import NOUT
+from .kernels.common import NOUT, OUT_LOGT, OUT_STOP
 from .projection import PAYLOAD_DIM
 
 
@@ -151,6 +158,112 @@ def rasterize_forward_torch(
         blocks.append(torch.stack(rows, dim=1))
     return torch.cat(blocks) if blocks else torch.zeros(
         (0, NOUT, px), dtype=torch.float32, device=device)
+
+
+def rasterize_backward_torch(
+    sorted_payload: torch.Tensor,   # (P, 16) rows in (tile, depth) order
+    tile_starts: torch.Tensor,      # (T + 1,) int32
+    cot_tiles: torch.Tensor,        # (T, NOUT, tile_px) rows dR, dG, dB, dlogT, dWsum, dDepth
+    fwd_tiles: torch.Tensor,        # (T, NOUT, tile_px) the forward's block
+    width: int,
+    height: int,
+    cfg: RasterConfig,
+    tile_row0: int = 0,
+    tile_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of K2. Returns the (P, 16) per-pair gradient rows:
+    channels 0-5 (mean, conic, opacity) through alpha, 6-10 (r, g, b, the
+    constant-1 weight channel, depth) directly, 11-15 zero. Rows of chunks
+    the forward did not composite, and rows past tile_starts[-1], are zero."""
+    ts, cs = cfg.tile_size, cfg.chunk_size
+    px = ts * ts
+    tiles_x, tiles_y = tile_grid(width, height, ts)
+    num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
+    device = sorted_payload.device
+    sigma_sq = cfg.sigma_radius * cfg.sigma_radius
+    p = sorted_payload.shape[0]
+
+    payload = torch.cat([
+        sorted_payload,
+        torch.zeros((cs, PAYLOAD_DIM), dtype=sorted_payload.dtype, device=device),
+    ])
+    out = torch.zeros((p, PAYLOAD_DIM), dtype=torch.float32, device=device)
+    idx = torch.arange(px, device=device)
+    xl = (idx % ts).to(torch.float32)[None, :, None]
+    yl = (idx // ts).to(torch.float32)[None, :, None]
+    lane = torch.arange(cs, device=device, dtype=torch.int64)
+
+    starts_all = tile_starts[:-1].to(torch.int64)
+    ends_all = tile_starts[1:].to(torch.int64)
+    stops_all = fwd_tiles[:, OUT_STOP, 0].to(torch.int64)
+    batch = max(1, _TILE_BATCH_ELEMS // (px * cs))
+    for t0 in range(0, num_tiles, batch):
+        t = torch.arange(t0, min(t0 + batch, num_tiles), device=device)
+        start, end = starts_all[t], ends_all[t]
+        base = torch.div(start, cs, rounding_mode="floor") * cs
+        n_chunks = torch.div(end - base + cs - 1, cs, rounding_mode="floor")
+        n_live = torch.minimum(stops_all[t], n_chunks)
+        ox = ((t % tiles_x) * ts).to(torch.float32)[:, None]
+        oy = ((t // tiles_x + tile_row0) * ts).to(torch.float32)[:, None]
+        cot = cot_tiles[t]
+        # Cotangents of the accumulated channels r, g, b, weight, depth.
+        dacc = torch.stack([cot[:, 0], cot[:, 1], cot[:, 2], cot[:, 4],
+                            cot[:, 5]], dim=-1)                   # (B, PX, 5)
+        log_t = fwd_tiles[t, OUT_LOGT, :]                          # (B, PX)
+        s_dlogt = cot[:, 3, :]                                      # (B, PX)
+        for ci in reversed(range(int(n_live.max().item()) if t.numel() else 0)):
+            active = ci < n_live
+            gidx = base[:, None] + ci * cs + lane[None, :]          # (B, CS)
+            chunk = payload[gidx.clamp(max=payload.shape[0] - 1)]  # (B, CS, 16)
+            in_seg = (gidx >= start[:, None]) & (gidx < end[:, None]) \
+                & active[:, None]
+            mx = (chunk[..., 0] - ox)[:, None, :]
+            my = (chunk[..., 1] - oy)[:, None, :]
+            ca = chunk[..., 2][:, None, :]
+            cb = chunk[..., 3][:, None, :]
+            cc = chunk[..., 4][:, None, :]
+            op = chunk[..., 5]
+            dx = xl - mx
+            dy = yl - my
+            q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy  # (B, PX, CS)
+            alpha_raw = op[:, None, :] * torch.exp(-0.5 * q)
+            live = in_seg[:, None, :] & (alpha_raw >= cfg.alpha_min) \
+                & (q <= sigma_sq)
+            alpha = torch.where(live, torch.clamp(alpha_raw, max=cfg.alpha_max),
+                                torch.zeros_like(alpha_raw))
+            unclamped = live & (alpha_raw < cfg.alpha_max)
+            ell = torch.log1p(-alpha)
+            s_incl = torch.cumsum(ell, dim=2)
+            log_t_start = log_t - s_incl[..., -1]
+            t_in = torch.exp(s_incl - ell + log_t_start[..., None])
+            w = alpha * t_in
+            feats = torch.stack(
+                [chunk[..., 6], chunk[..., 7], chunk[..., 8],
+                 torch.ones_like(chunk[..., 0]), chunk[..., 10]], dim=-1)
+            dw = torch.bmm(dacc, feats.transpose(1, 2))             # (B, PX, CS)
+            d_se = dw * w
+            # d logT of pair j: the pixel's carried dlogT plus d_se of every
+            # later pair of the chunk (a strict suffix sum).
+            suffix = torch.flip(torch.cumsum(torch.flip(d_se, [2]), dim=2), [2])
+            d_ell = torch.cat([suffix[..., 1:], torch.zeros_like(suffix[..., :1])],
+                              dim=2) + s_dlogt[..., None]
+            dalpha = torch.where(unclamped, dw * t_in - d_ell / (1.0 - alpha),
+                                 torch.zeros_like(alpha))
+            dq = -0.5 * dalpha * alpha
+            geom = torch.stack([
+                (-2.0 * dq * (ca * dx + cb * dy)).sum(1),
+                (-2.0 * dq * (cc * dy + cb * dx)).sum(1),
+                (dq * dx * dx).sum(1),
+                (2.0 * dq * dx * dy).sum(1),
+                (dq * dy * dy).sum(1),
+                -2.0 * dq.sum(1) / torch.clamp(op, min=1e-20),
+            ], dim=1)                                               # (B, 6, CS)
+            direct = torch.bmm(dacc.transpose(1, 2), w)             # (B, 5, CS)
+            rows = torch.cat([geom, direct, torch.zeros_like(direct)], dim=1)
+            out[gidx[in_seg]] = rows.transpose(1, 2)[in_seg]
+            log_t = torch.where(active[:, None], log_t_start, log_t)
+            s_dlogt = torch.where(active[:, None], s_dlogt + d_se.sum(2), s_dlogt)
+    return out
 
 
 def max_chunks_needed(tile_starts: torch.Tensor, chunk_size: int) -> torch.Tensor:

@@ -3,12 +3,14 @@
   project_gaussians   (ops/projection.py, autograd)
   bin_gaussians       (ops/binning.py: compaction sort, the K4 expansion
                        kernel, pair sort, segments)
-  payload gather      (sorted by (tile, depth))
-  rasterize           (the K1 forward kernel, or its plain version)
+  payload gather      (sorted by (tile, depth); backward: the K3 segment
+                       reduce, ops/binning.reduce_pair_grads)
+  rasterize           (the K1 forward kernel; backward: the K2 kernel)
 
-It runs on the device of the model's tensors. On the card the kernels have
-no backward yet, so call it under `torch.no_grad()` (or
-`torch.inference_mode()`); on the CPU the plain versions are differentiable.
+It runs on the device of the model's tensors and is differentiable w.r.t.
+every model parameter, `background` and `mean2d_offset`: on CUDA tensors
+through the kernels, on CPU tensors through their plain versions. Serving
+calls it under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -42,10 +44,14 @@ def render(
     cfg: Optional[RasterConfig] = None,
     sh_degree: Optional[int] = None,
     background: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
 ) -> RenderOutput:
     """Render a camera view of the model. `impl` ('auto', 'cuda', 'torch')
-    defaults to `cfg.impl`; see ops/raster_dispatch.py."""
+    defaults to `cfg.impl`; see ops/raster_dispatch.py. `mean2d_offset`
+    (C, 2) is added to the projected centres before binning: pass zeros
+    that require grad to harvest each gaussian's screen-space position
+    gradient (densification statistics)."""
     cfg = cfg or RasterConfig()
     device = model.device
     if sh_degree is None:
@@ -60,6 +66,8 @@ def render(
         model.means, model.quats, model.log_scales, model.logit_opacities,
         model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
     )
+    if mean2d_offset is not None:
+        proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
     binning = bin_gaussians(proj, camera.width, camera.height, cfg, impl=impl)
     out = rasterize_payload(make_payload(proj), binning, background,
                             camera.width, camera.height, cfg, impl)

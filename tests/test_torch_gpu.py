@@ -5,6 +5,14 @@ torch.cuda.is_available() is False. This file imports no JAX, so it also
 runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+K2 (backward raster) is held against its plain version under a seeded
+random cotangent: rows 0-10 scaled by each row's largest magnitude, all but
+0.1% of the entries within 1e-4 and every entry within 1e-2 (the kernel
+rewinds transmittance per pixel and sums in another order, ~1e-6; a
+knife-edge alpha gate can flip where exp rounds differently). K3 (segment reduce)
+within 1e-5 of each channel's largest magnitude. Both kernels must give the
+same bits on two launches.
 """
 
 import numpy as np
@@ -21,11 +29,21 @@ from gaussiansplat_tpu_torch.ops.binning import (
     expand_compacted,
 )
 from gaussiansplat_tpu_torch.ops.camera import look_at
+from gaussiansplat_tpu_torch.ops.kernels.backward import (
+    BACKWARD,
+    rasterize_backward_cuda,
+    rasterize_backward_torch,
+)
 from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
 from gaussiansplat_tpu_torch.ops.kernels.forward import (
     FORWARD,
     rasterize_forward_cuda,
     rasterize_forward_torch,
+)
+from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
+    SEGREDUCE,
+    segment_reduce_pairs_cuda,
+    segment_reduce_pairs_torch,
 )
 from gaussiansplat_tpu_torch.ops.projection import make_payload, project_gaussians
 from gaussiansplat_tpu_torch.render import render
@@ -146,10 +164,102 @@ def test_render_cuda_matches_torch(cuda):
                         b.transmittance.cpu().numpy())
 
 
-def test_render_with_grad_raises(cuda):
-    model, cam = _scene(cuda, 256, 128, 128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        render(model, cam, impl="cuda")
+def _assert_rows_close(got, want, what, bulk_atol=1e-4, bulk_frac=1e-3,
+                       atol=1e-2):
+    scale = want.abs().max().clamp(min=1e-12)
+    d = (got - want).abs() / scale
+    assert float(d.max()) <= atol, f"{what}: max scaled |diff| {float(d.max()):.3e}"
+    frac = float((d > bulk_atol).float().mean())
+    assert frac <= bulk_frac, f"{what}: {frac:.2%} of entries above {bulk_atol}"
+
+
+def _backward_inputs(device, cfg, n=4096, seed=0):
+    model, cam = _scene(device, n, 256, 192, seed=seed, opacity=0.99, fx=880.0)
+    with torch.no_grad():
+        proj = _project(model, cam, cfg)
+        b = bin_gaussians(proj, cam.width, cam.height, cfg, impl="cuda")
+        sp = b.gather_payload(make_payload(proj))
+        fwd = rasterize_forward_cuda(sp, b.tile_starts, cam.width, cam.height, cfg)
+    g = torch.Generator().manual_seed(seed + 7)
+    cot = torch.randn(fwd.shape, generator=g).to(device)
+    cot[:, 4:] = 0.0
+    return cam, b, sp, fwd, cot
+
+
+@pytest.mark.parametrize("chunk_size,trans_eps", [(128, 1e-4), (8, 1e-4),
+                                                  (128, 0.0)],
+                         ids=["cs128", "cs8_early_exit", "cs128_no_exit"])
+def test_backward_matches_plain(cuda, chunk_size, trans_eps):
+    cfg = RasterConfig(chunk_size=chunk_size, trans_eps=trans_eps)
+    cam, b, sp, fwd, cot = _backward_inputs(cuda, cfg)
+    args = (sp, b.tile_starts, cot, fwd, cam.width, cam.height, cfg)
+    before = BACKWARD.launches
+    got = rasterize_backward_cuda(*args)
+    again = rasterize_backward_cuda(*args)
+    want = rasterize_backward_torch(*args)
+    torch.cuda.synchronize()
+    assert BACKWARD.launches == before + 2
+    n = int(b.num_pairs)
+    assert n > 0
+    assert torch.equal(got[:n], again[:n]), "K2 is not deterministic"
+    for row in range(11):
+        _assert_rows_close(got[:n, row], want[:n, row], f"row {row}")
+    assert not got[:n, 11:].any()
+    assert float(got[:n, :6].abs().max()) > 0
+
+
+def test_segment_reduce_matches_plain(cuda):
+    cfg = RasterConfig()
+    _, b, _, _, _ = _backward_inputs(cuda, cfg)
+    n, p = b.depth_order.shape[0], b.sorted_pos.shape[0]
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randn((p, 16), generator=g).to(cuda)
+    rows[int(b.num_pairs):] = 0.0
+    before = SEGREDUCE.launches
+    got = segment_reduce_pairs_cuda(rows, b.seg_offsets, n)
+    again = segment_reduce_pairs_cuda(rows, b.seg_offsets, n)
+    want = segment_reduce_pairs_torch(rows, b.seg_offsets, n)
+    torch.cuda.synchronize()
+    assert SEGREDUCE.launches == before + 2
+    assert torch.equal(got, again), "K3 is not deterministic"
+    scale = want.abs().amax(0).clamp(min=1e-12)
+    assert float(((got - want).abs() / scale).max()) <= 1e-5
+
+
+def test_backward_launches_each_kernel_once(cuda):
+    model, cam = _scene(cuda, 2048, 256, 192)
+    counts = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
+    out = render(model, cam, impl="cuda")
+    out.image.sum().backward()
+    torch.cuda.synchronize()
+    after = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
+    assert [a - c for a, c in zip(after, counts)] == [1, 1, 1, 1]
+    for name, prm in model.trainable().items():
+        assert torch.isfinite(prm.grad).all(), name
+    assert float(model.means.grad.abs().max()) > 0
+
+
+def test_render_grads_cuda_match_torch(cuda):
+    """Gradients with the kernels against the plain versions: all six
+    groups and the background, within 2e-3 of each one's largest
+    magnitude."""
+    model, cam = _scene(cuda, 2048, 256, 192, seed=4)
+    g = torch.Generator().manual_seed(5)
+    target = torch.rand((192, 256, 3), generator=g).to(cuda)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        bg = torch.tensor([0.3, 0.1, 0.6], device=cuda, requires_grad=True)
+        out = render(model, cam, background=bg, impl=impl)
+        loss = ((out.image - target) ** 2).mean() + 0.1 * out.transmittance.mean()
+        loss.backward()
+        grads[impl] = {k: p.grad.clone() for k, p in model.trainable().items()}
+        grads[impl]["background"] = bg.grad.clone()
+    for k, want in grads["torch"].items():
+        got = grads["cuda"][k]
+        scale = want.abs().max().clamp(min=1e-12)
+        err = float(((got - want).abs() / scale).max())
+        assert err <= 2e-3, f"{k}: {err:.3e}"
 
 
 def test_tile_size_limit(cuda):

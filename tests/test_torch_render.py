@@ -33,10 +33,14 @@ from gaussiansplat_tpu.utils import export_ply as j_export_ply
 from gaussiansplat_tpu_torch import cli
 from gaussiansplat_tpu_torch.config import RasterConfig
 from gaussiansplat_tpu_torch.models import from_arrays, random_model
+from gaussiansplat_tpu_torch.models.densify import DensifyState
 from gaussiansplat_tpu_torch.ops.camera import look_at, make_camera
+from gaussiansplat_tpu_torch.ops.kernels.backward import rasterize_backward_cuda
 from gaussiansplat_tpu_torch.ops.kernels.expand import expand_pairs_cuda
 from gaussiansplat_tpu_torch.ops.kernels.forward import rasterize_forward_cuda
+from gaussiansplat_tpu_torch.ops.kernels.segreduce import segment_reduce_pairs_cuda
 from gaussiansplat_tpu_torch.render import render
+from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
 from gaussiansplat_tpu_torch.utils import import_ply
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -165,7 +169,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_file_imports_jax_or_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "compare_forward_builds.py"]
     assert len(files) > 15
     for f in files:
         bad = {"jax", "jaxlib", "flax", "gaussiansplat_tpu"} & set(
@@ -185,12 +190,22 @@ def test_cuda_paths_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rasterize_forward_cuda(torch.zeros((8, 16)), torch.zeros(5, dtype=torch.int32),
                                64, 64, RasterConfig())
+    blocks = torch.zeros((4, 8, 1024))
+    with pytest.raises(ValueError, match="CUDA"):
+        rasterize_backward_cuda(torch.zeros((8, 16)), torch.zeros(5, dtype=torch.int32),
+                                blocks, blocks, 64, 64, RasterConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce_pairs_cuda(torch.zeros((8, 16)), torch.zeros(3, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="impl"):
         render(m, cam, impl="pallas")
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (random_model, from_arrays, import_ply, look_at, make_camera):
+    for fn in (random_model, from_arrays, import_ply, look_at, make_camera,
+               DensifyState.zeros):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # The train state and step run on the device of the model they get.
+    for fn in (init_train_state, make_train_step):
+        assert "device" not in inspect.signature(fn).parameters, fn
     args = cli.build_parser().parse_args(["render", "--ply", "x.ply"])
     assert args.device == "cuda"
