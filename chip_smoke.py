@@ -18,6 +18,10 @@
    K2's rows in pre-sort order, within 1e-5 of each channel's largest
    entry. K2 and K3 must give the same bits on two launches. Times by CUDA
    events, with the plain versions' times and K3's `index_add_` yardstick.
+   K1's and K2's bounds count this run's raster work with plain PyTorch on
+   the card (`raster_work`: composited (pixel, pair)s, the (warp, pair)s the
+   support cull tests and keeps, those with a live pixel, the live (pixel,
+   pair)s) and charge it at the card's per-SM rates; every term is printed.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -51,30 +55,61 @@ import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3,
 # and 67 TFLOP/s float32 outside the tensor cores, which counts each FMA as
-# two operations. K1 rounds every multiply and add apart (no FMA), so its
-# float32 work is bounded by instruction issue: 128 thread instructions per
-# clock per SM, half of 67e12. Its exponentials run on the special-function
-# units at 16 results per clock per SM, an eighth of that (CUDA programming
-# guide, arithmetic instruction throughput, compute capability 9.0).
+# two operations: 132 SMs x 128 lanes x 1.98 GHz. Per-SM rates of compute
+# capability 9.0 (CUDA C++ programming guide, "Arithmetic Instructions",
+# throughput of native arithmetic instructions, in results per clock per
+# SM): 128 32-bit float adds, multiplies or FMAs, which is also the issue
+# rate of any instruction (4 schedulers x 32 lanes); 16 special-function
+# results (exp2, log2, reciprocal); 32 warp-shuffle results. Shared memory
+# delivers 32 banks x 4 B per clock (the guide's "Shared Memory" section):
+# one warp-wide load per clock per SM, a broadcast 16-byte load included.
+SMS, CLOCK = 132, 1.98e9
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_ISSUE_PER_S = 67e12 / 2
-PEAK_SFU_PER_S = PEAK_ISSUE_PER_S / 8
-# Work per (pixel, in-segment pair) of the composited chunks that K1 cannot
-# avoid before its gates: 14 instructions (dx, dy, the factored quadratic
-# form with 2cb taken per pair: 6 mul and 2 add, the -1/2 scale, the opacity
-# multiply, the two gate compares) and one exponential. Pairs that pass the
-# gates cost more; that is not counted, so the bound is a floor.
-K1_ISSUE_PER_EVAL = 14
-K1_SFU_PER_EVAL = 1
-# K2 re-evaluates the same gates for every (pixel, in-segment pair) of the
-# chunks K1 composited (the shared code of raster_common.cuh: 14
-# instructions and one exponential) and votes once per warp and pair
-# (__any_sync) before it knows whether the pair is live anywhere in the
-# warp: 15 instructions. Live pairs add ~40 instructions, two
-# special-function calls and the warp reduction; not counted, so the bound
-# is a floor.
-K2_ISSUE_PER_EVAL = 15
-K2_SFU_PER_EVAL = 1
+RATES = {"instruction issue": 128 * SMS * CLOCK,
+         "special-function units": 16 * SMS * CLOCK,
+         "shared-memory loads": 32 * SMS * CLOCK,
+         "warp shuffles": 32 * SMS * CLOCK}
+# The gate-only floor bounds of the one-thread-per-pixel kernels, kept for
+# comparison: per (pixel, in-segment pair) of the composited chunks, K1 14
+# instructions (dx, dy, the factored q, the -1/2 scale, the opacity
+# multiply, two compares) and one exponential, K2 the same plus a vote.
+# They leave out the live work.
+K1_ISSUE_PER_EVAL, K2_ISSUE_PER_EVAL, SFU_PER_EVAL = 14, 15, 1
+# The complete bounds: the work of the kernels' algorithm, by what it is
+# charged on (counts from `raster_work` on this run's data), in lane slots
+# (a warp-wide instruction is 32; a 16-byte shared load of 32 different
+# lanes takes 4 clocks, 128 slots; a broadcast one 32). The gates are
+# charged on every (warp, pair) the cull keeps, the live work on the live
+# (pixel, pair)s only, so each bound is what the kernel would take if it
+# issued nothing else, wasted no lane and never stalled:
+#   tested:    every (warp, in-segment pair) of the composited chunks, one
+#              lane each: a 16-byte load, 4 subtractions and 4 compares of
+#              the box test, the ballot (12; K2 23 with the 11 zero stores
+#              of a culled pair's partial).
+#   kept:      every (warp, pair) whose box meets the extent, per thread:
+#              the bit walk (4), three broadcast loads, the quad's four q
+#              (26 rounded instructions), four gates (scale, exp with its
+#              range reduction, opacity multiply, two compares: 11 each, one
+#              exponential each) (78; K2 80 with the vote).
+#   live_warp: K2, every (warp, pair) with a live pixel, per thread: the
+#              transpose reduction (15 steps of 2 selects, a shuffle and an
+#              add, a last shuffle and add) and the partial's store: 64, 16
+#              shuffles.
+#   live:      every live (pixel, pair): K1 the clamp, exp(logT), w, five
+#              multiply-adds and log1p (35 instructions, 2 special-function
+#              calls); K2 the rewind, exp, w, dw, dalpha with its divide
+#              (the fast exp and divide), dlogT, dq and 11 accumulations (63,
+#              3 special-function calls).
+#   pairs:     every composited pair, K2 only: 16 threads sum the 8 warps'
+#              partials (8 loads, 8 adds) and store the row.
+K1_COST = {"tested": dict(issue=12, lds=4),
+           "kept": dict(issue=78 * 32, lds=3 * 32, sfu=4 * 32),
+           "live": dict(issue=35, sfu=2)}
+K2_COST = {"tested": dict(issue=23, lds=4),
+           "kept": dict(issue=80 * 32, lds=3 * 32, sfu=4 * 32),
+           "live_warp": dict(issue=64 * 32, shfl=16 * 32),
+           "live": dict(issue=63, sfu=3),
+           "pairs": dict(issue=16 * 18, lds=16 * 8)}
 # K2's budget against its plain version, relative to each gradient row's
 # largest entry: all but 0.1% of the entries within 1e-4 (per-pixel against
 # per-chunk rewinding and other summation orders move them by ~1e-6), every
@@ -95,6 +130,14 @@ def bench_scene(n: int, device, seed: int = 0):
     g = torch.Generator().manual_seed(seed)
     return random_model(g, n, sh_degree=3, extent=1.0, opacity=0.8,
                         scale_range=(0.004 * k, 0.012 * k), device=device)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0].strip()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -125,23 +168,90 @@ def assert_budget(got, want, what, atol=1e-4, outlier_frac=1e-3,
     return dmax
 
 
-def composited_pairs(tile_starts, stops, chunk_size: int) -> int:
-    """In-segment pairs of the chunks the tiles composited (K1's stop row):
-    the pairs K1 and K2 evaluate at every pixel."""
-    starts = tile_starts.to(torch.int64)
-    base = starts[:-1] // chunk_size * chunk_size
-    reach = torch.minimum(starts[1:], base + stops.to(torch.int64) * chunk_size)
-    return int(torch.clamp(reach - starts[:-1], min=0).sum())
+def floor_bound(nbytes: float, evals: float, issue_per_eval: int) -> float:
+    """The gate-only floor bound (ms): bytes, or the gate instructions and
+    exponential of every evaluated (pixel, pair), whichever is larger."""
+    return max(nbytes / PEAK_BYTES_PER_S,
+               evals * issue_per_eval / RATES["instruction issue"],
+               evals * SFU_PER_EVAL / RATES["special-function units"]) * 1e3
 
 
-def bound(nbytes: float, evals: float, issue_per_eval: int, sfu_per_eval: int):
-    """The largest of the bytes, instruction-issue and special-function
-    times (ms), and which one it is."""
-    times = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
-             "instruction issue": evals * issue_per_eval / PEAK_ISSUE_PER_S * 1e3,
-             "special-function units": evals * sfu_per_eval / PEAK_SFU_PER_S * 1e3}
+def bound(nbytes: float, work: dict, cost: dict):
+    """The complete bound (ms): each resource's total over its per-SM peak
+    rate; the largest, which one it is, and every term."""
+    units = {"issue": "instruction issue", "sfu": "special-function units",
+             "lds": "shared-memory loads", "shfl": "warp shuffles"}
+    totals = dict.fromkeys(units.values(), 0.0)
+    for item, charges in cost.items():
+        for unit, per in charges.items():
+            totals[units[unit]] += work[item] * per
+    times = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    times.update({k: v / RATES[k] * 1e3 for k, v in totals.items()})
     worst = max(times, key=times.get)
     return times[worst], "bytes" if worst == "bytes" else "operations", times
+
+
+def raster_work(sp, tile_starts, stops, cfg, batch: int = 8192) -> dict:
+    """What K1 and K2 evaluate on this run's data, counted with plain
+    PyTorch on the card: the in-segment pairs of the chunks K1 composited
+    (its stop row), and over them the (pixel, pair)s, the (warp, pair)s the
+    cull tests, those it keeps, those with a live pixel, and the live
+    (pixel, pair)s. Gates: ops/tile_raster.alpha_gates; extent: its twin
+    support_extent; warps: the 16x8-pixel boxes of csrc/raster_common.cuh."""
+    from gaussiansplat_tpu_torch.ops.binning import tile_grid
+    from gaussiansplat_tpu_torch.ops.kernels.common import WARP_BOX, raster_warps
+    from gaussiansplat_tpu_torch.ops.tile_raster import alpha_gates, support_extent
+
+    device = sp.device
+    ts, cs = cfg.tile_size, cfg.chunk_size
+    tiles_x, _ = tile_grid(WIDTH, HEIGHT, ts)
+    starts = tile_starts.to(torch.int64)
+    base = starts[:-1] // cs * cs
+    reach = torch.minimum(starts[1:], base + stops.to(torch.int64) * cs)
+    lens = torch.clamp(reach - starts[:-1], min=0)
+    tile = torch.repeat_interleave(torch.arange(lens.numel(), device=device), lens)
+    first = torch.repeat_interleave(starts[:-1], lens)
+    offs = torch.arange(tile.numel(), device=device) - torch.repeat_interleave(
+        torch.cumsum(lens, 0) - lens, lens)
+    rows = first + offs                                   # composited pairs
+    idx = torch.arange(ts * ts, device=device)
+    xl, yl = (idx % ts).float(), (idx // ts).float()
+    wx, wy = raster_warps(ts)
+    bw, bh = WARP_BOX
+    warp_of = (yl.long() // bh) * wx + xl.long() // bw
+    onehot = torch.nn.functional.one_hot(warp_of, wx * wy).float()
+    w = torch.arange(wx * wy, device=device)
+    bx0 = ((w % wx) * bw).float()
+    bx1 = torch.clamp(bx0 + bw - 1, max=ts - 1)
+    by0 = ((w // wx) * bh).float()
+    by1 = torch.clamp(by0 + bh - 1, max=ts - 1)
+    kept = live_warp = live = 0
+    for i in range(0, rows.numel(), batch):
+        r, t = rows[i:i + batch], tile[i:i + batch]
+        pay = sp[r]
+        mx = (pay[:, 0] - ((t % tiles_x) * ts).float())[:, None]
+        my = (pay[:, 1] - ((t // tiles_x) * ts).float())[:, None]
+        ca, cb, cc, op = (pay[:, k][:, None] for k in (2, 3, 4, 5))
+        _, _, lv = alpha_gates(ca, cb, cc, op, xl - mx, yl - my, cfg)
+        _, hx, hy = support_extent(ca, cb, cc, op, cfg)
+        hits = ((bx0 - mx <= hx) & (bx1 - mx >= -hx)
+                & (by0 - my <= hy) & (by1 - my >= -hy))
+        kept += int(hits.sum())
+        live_warp += int(((lv.float() @ onehot) > 0).sum())
+        live += int(lv.sum())
+    pairs = rows.numel()
+    return dict(pairs=pairs, evaluated=pairs * ts * ts, tested=pairs * wx * wy,
+                kept=kept, live_warp=live_warp, live=live)
+
+
+def print_work(work: dict, card: str) -> None:
+    print("raster work on this run's data (K1 and K2 sweep the same chunks): "
+          f"{work['pairs']} composited pairs, {work['evaluated']} (pixel, "
+          f"pair)s, {work['tested']} (warp, pair)s tested by the cull, "
+          f"{work['kept']} kept ({work['kept'] / max(work['tested'], 1):.4f}), "
+          f"{work['live_warp']} with a live pixel, {work['live']} live "
+          f"(pixel, pair)s ({work['live'] / max(work['evaluated'], 1):.4f} "
+          f"of those evaluated) | {card}")
 
 
 def project(model, cam, cfg):
@@ -214,30 +324,32 @@ def check_forward(model, cam, cfg, card: str):
 
     ms = cuda_ms(lambda: rasterize_forward_cuda(*args), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: rasterize_forward_torch(*args), reps=2)
-    # Bound: the pairs K1 must read (40 B of needed channels each) and the
-    # output block written, against the instructions and exponentials of
-    # each (pixel, in-segment pair) of the chunks this run's data made it
-    # composite; the largest of the three times.
-    evaluated = composited_pairs(b.tile_starts, stops_g, cfg.chunk_size)
+    # Bounds: the gate-only floor (the gates of every (pixel, pair) of the
+    # chunks K1 composited), and the complete one (`K1_COST` on the counts
+    # of this run's data). Bytes: the composited pairs' 10 needed channels
+    # read once, the output block written.
+    work = raster_work(sp, b.tile_starts, stops_g, cfg)
+    print_work(work, card)
     num_pairs = int(b.num_pairs)
-    nbytes = num_pairs * 40 + got.numel() * 4 + b.tile_starts.numel() * 4
-    bound_ms, bound_by, parts = bound(nbytes, evaluated * cfg.tile_size ** 2,
-                                      K1_ISSUE_PER_EVAL, K1_SFU_PER_EVAL)
+    nbytes = work["pairs"] * 40 + got.numel() * 4 + b.tile_starts.numel() * 4
+    floor_ms = floor_bound(nbytes, work["evaluated"], K1_ISSUE_PER_EVAL)
+    bound_ms, bound_by, parts = bound(nbytes, work, K1_COST)
     print(f"K1 forward {WIDTH}x{HEIGHT} n={model.capacity} ({t} tiles, "
-          f"{num_pairs} pairs, {evaluated} pairs composited): image rows "
+          f"{num_pairs} pairs, {work['pairs']} pairs composited): image rows "
           f"max|diff| {err:.3e}; {ms:.4f} ms (CUDA events), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-          + f") | {card}")
+          + f"), gate-only floor bound {floor_ms:.4f} ms | {card}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by), work
 
 
-def check_backward(model, cam, cfg, card: str):
+def check_backward(model, cam, cfg, work: dict, card: str):
     """K2 against its plain version on the 1080p sorted payload, K1's block
     and a seeded random cotangent (rows 4 and 5 zero, as the rasterizer
-    makes them). Returns its record and the binning and gradient rows that
-    K3 is checked on."""
+    makes them); `work` holds the counts of K1's check on the same data.
+    Returns its record and the binning and gradient rows that K3 is checked
+    on."""
     from gaussiansplat_tpu_torch.ops.binning import bin_gaussians
     from gaussiansplat_tpu_torch.ops.kernels.backward import (
         rasterize_backward_cuda,
@@ -280,20 +392,21 @@ def check_backward(model, cam, cfg, card: str):
 
     ms = cuda_ms(lambda: rasterize_backward_cuda(*args), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: rasterize_backward_torch(*args), reps=1)
-    # Bound: payload rows read (40 B) and gradient rows written (64 B) per
-    # pair, 7 rows of the cotangent and forward blocks read per pixel,
-    # against the gate evaluations of the composited chunks.
-    evaluated = composited_pairs(b.tile_starts, fwd[:, 6, 0], cfg.chunk_size)
+    # Bounds as K1's, on the same counts (K2 sweeps the chunks K1
+    # composited). Bytes: the composited pairs read (40 B), every row of the
+    # segments written (64 B), 7 rows of the cotangent and forward blocks
+    # read per pixel.
     px = cfg.tile_size ** 2
-    nbytes = n * (40 + 64) + fwd.shape[0] * px * 7 * 4 + b.tile_starts.numel() * 4
-    bound_ms, bound_by, parts = bound(nbytes, evaluated * px,
-                                      K2_ISSUE_PER_EVAL, K2_SFU_PER_EVAL)
+    nbytes = (work["pairs"] * 40 + n * 64 + fwd.shape[0] * px * 7 * 4
+              + b.tile_starts.numel() * 4)
+    floor_ms = floor_bound(nbytes, work["evaluated"], K2_ISSUE_PER_EVAL)
+    bound_ms, bound_by, parts = bound(nbytes, work, K2_COST)
     print(f"K2 backward {WIDTH}x{HEIGHT} n={model.capacity} ({n} pairs, "
-          f"{evaluated} pairs composited): bit-equal on two launches, rows "
+          f"{work['pairs']} pairs composited): bit-equal on two launches, rows "
           f"0-10 max|diff| {err:.3e}; {ms:.4f} ms (CUDA events), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-          + f") | {card}")
+          + f"), gate-only floor bound {floor_ms:.4f} ms | {card}")
     valid = torch.arange(got.shape[0], device=device) < n
     dsorted = got.masked_fill(~valid[:, None], 0.0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -572,12 +685,8 @@ def main() -> int:
     device = torch.device("cuda")
 
     # 1. probe
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    card = smi.strip()
+    card = card_line()
+    print(card)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
@@ -604,8 +713,8 @@ def main() -> int:
     model = bench_scene(N_GAUSSIANS, device)
     with torch.no_grad():
         k4 = check_expand(model, bench_cam, cfg, True, card)
-        k1 = check_forward(model, bench_cam, cfg, card)
-        k2, binning, dsorted = check_backward(model, bench_cam, cfg, card)
+        k1, work = check_forward(model, bench_cam, cfg, card)
+        k2, binning, dsorted = check_backward(model, bench_cam, cfg, work, card)
         k3 = check_segreduce(binning, dsorted, card)
     del binning, dsorted
     torch.cuda.empty_cache()

@@ -1,15 +1,27 @@
 #!/usr/bin/env python3
-"""Compare two builds of the forward raster kernel (K1) bit for bit.
+"""Compare the raster kernels (K1 forward, K2 backward) of another source
+tree with this checkout's, on the card.
 
     git archive <commit> gaussiansplat_tpu_torch/csrc | tar -x -C other/
     python3 compare_forward_builds.py other/gaussiansplat_tpu_torch/csrc
 
-Builds `forward.cu` of the given csrc directory beside the checkout's own
-(one nvcc each, in parallel), runs both through `rasterize_forward_cuda` on
-the 1920x1080 benchmark scene of chip_smoke.py at 1M and 300k gaussians,
-and prints whether the two (T, 8, tile_px) output blocks are equal in every
-bit. Exits non-zero if they differ or no CUDA card is present. The two
-sources must export the same `gs_rasterize_forward` launcher.
+Builds `forward.cu` and `backward.cu` of the given csrc directory beside
+the checkout's own (one nvcc each, in parallel), and runs both through the
+checkout's wrappers on the 1920x1080 benchmark scene of chip_smoke.py at 1M
+and 300k gaussians:
+
+* K1: whether the two (T, 8, tile_px) output blocks are equal in every bit;
+* K2: on the same payload, K1's block and a seeded cotangent, the largest
+  difference of each gradient row 0-10 scaled by that row's largest entry
+  in the other tree's output, held to chip_smoke.py's K2 budget
+  (`K2_BULK_ATOL` for all but `K2_BULK_FRAC` of the entries, `K2_ATOL` for
+  every entry);
+* each kernel's time by CUDA events, the two builds in turns (other, this,
+  this, other).
+
+Exits non-zero if K1 differs, K2 leaves its budget or no CUDA card is
+present. The two trees must export the same launchers
+(`gs_rasterize_forward`, `gs_rasterize_backward`).
 """
 
 from __future__ import annotations
@@ -22,6 +34,32 @@ import torch
 import chip_smoke as cs
 
 
+def run_build(build: dict, key: str, args):
+    """Launch kernel `key` ('fwd' for K1, 'bwd' for K2) of `build` (a dict
+    of CudaKernels) through the checkout's wrapper, so every build gets the
+    wrapper's own checks and arguments."""
+    from gaussiansplat_tpu_torch.ops.kernels import backward, forward
+
+    module, attr, fn = {
+        "fwd": (forward, "FORWARD", forward.rasterize_forward_cuda),
+        "bwd": (backward, "BACKWARD", backward.rasterize_backward_cuda),
+    }[key]
+    own = getattr(module, attr)
+    setattr(module, attr, build[key])
+    try:
+        return fn(*args)
+    finally:
+        setattr(module, attr, own)
+
+
+def time_in_turns(other: dict, ours: dict, key: str, args):
+    """(other ms, ours ms): each the mean of two timings of 10 launches,
+    taken in turns other, ours, ours, other."""
+    t = [cs.cuda_ms(lambda w=w: run_build(w, key, args), reps=10, warmup=2)
+         for w in (other, ours, ours, other)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
 def main(argv) -> int:
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
@@ -32,43 +70,67 @@ def main(argv) -> int:
     from gaussiansplat_tpu_torch.config import RasterConfig
     from gaussiansplat_tpu_torch.ops.binning import bin_gaussians
     from gaussiansplat_tpu_torch.ops.camera import look_at
-    from gaussiansplat_tpu_torch.ops.kernels import forward
+    from gaussiansplat_tpu_torch.ops.kernels import backward, forward
     from gaussiansplat_tpu_torch.ops.kernels.build import CudaKernel, build_all
     from gaussiansplat_tpu_torch.ops.projection import make_payload
 
-    ours = forward.FORWARD
-    other = CudaKernel(str(Path(argv[0]).resolve() / "forward.cu"),
-                       ours.symbol, ours.argtypes)
-    build_all([ours, other])
-
-    def run(kernel, args):
-        # The wrapper launches the module's FORWARD; point it at `kernel`
-        # for this call, so both builds get the wrapper's own arguments.
-        forward.FORWARD = kernel
-        try:
-            return forward.rasterize_forward_cuda(*args)
-        finally:
-            forward.FORWARD = ours
+    other_dir = Path(argv[0]).resolve()
+    ours = {"fwd": forward.FORWARD, "bwd": backward.BACKWARD}
+    other = {k: CudaKernel(str(other_dir / v.source.name), v.symbol, v.argtypes)
+             for k, v in ours.items()}
+    build_all([*ours.values(), *other.values()])
 
     device = torch.device("cuda")
     cfg = RasterConfig()
     cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=cs.FX,
                   fy=cs.FX, width=cs.WIDTH, height=cs.HEIGHT, device=device)
-    same_all = True
+    card = cs.card_line()
+    print(card)
+    ok = True
     for n in (1_000_000, 300_000):
         model = cs.bench_scene(n, device)
         with torch.no_grad():
             proj = cs.project(model, cam, cfg)
             b = bin_gaussians(proj, cs.WIDTH, cs.HEIGHT, cfg, impl="cuda")
             sp = b.gather_payload(make_payload(proj))
-            args = (sp, b.tile_starts, cs.WIDTH, cs.HEIGHT, cfg)
-            a, o = run(ours, args), run(other, args)
+            fargs = (sp, b.tile_starts, cs.WIDTH, cs.HEIGHT, cfg)
+            a, o = run_build(ours, "fwd", fargs), run_build(other, "fwd", fargs)
+            gen = torch.Generator(device=device).manual_seed(7)
+            cot = torch.randn(a.shape, generator=gen, device=device)
+            cot[:, 4:] = 0.0
+            bargs = (sp, b.tile_starts, cot, a, cs.WIDTH, cs.HEIGHT, cfg)
+            ga, go = run_build(ours, "bwd", bargs), run_build(other, "bwd", bargs)
         torch.cuda.synchronize()
         same = torch.equal(a.view(torch.int32), o.view(torch.int32))
-        same_all &= same
-        print(f"K1 {cs.WIDTH}x{cs.HEIGHT} n={n} ({int(b.num_pairs)} pairs): "
-              f"this checkout's build vs {argv[0]}: bit-identical {same}")
-    return 0 if same_all else 1
+        ok &= same
+        p = int(b.num_pairs)
+        print(f"K1 {cs.WIDTH}x{cs.HEIGHT} n={n} ({p} pairs): this checkout's "
+              f"build vs {argv[0]}: bit-identical {same}")
+        worst = 0.0
+        for row in range(11):
+            scale = float(go[:p, row].abs().max())
+            rel = (ga[:p, row] - go[:p, row]).abs() / max(scale, 1e-30)
+            dmax = float(rel.max())
+            frac = float((rel > cs.K2_BULK_ATOL).float().mean())
+            worst = max(worst, dmax)
+            inside = scale == 0 or (dmax <= cs.K2_ATOL and frac <= cs.K2_BULK_FRAC)
+            ok &= inside
+            print(f"  K2 row {row:2d}: max|row| {scale:.3e}, max scaled |diff| "
+                  f"{dmax:.3e}, {frac:.4%} above {cs.K2_BULK_ATOL}"
+                  + ("" if inside else "  OUTSIDE THE BUDGET"))
+        zero = not ga[:p, 11:].any()
+        ok &= zero
+        print(f"K2 n={n}: this checkout's build vs {argv[0]}: rows 0-10 within "
+              f"{worst:.3e} of each row's largest entry, rows 11-15 zero {zero}")
+        with torch.no_grad():
+            f_other, f_ours = time_in_turns(other, ours, "fwd", fargs)
+            b_other, b_ours = time_in_turns(other, ours, "bwd", bargs)
+        print(f"times n={n} (CUDA events, 10 launches, in turns other, this, "
+              f"this, other): K1 {f_other:.4f} -> {f_ours:.4f} ms, K2 "
+              f"{b_other:.4f} -> {b_ours:.4f} ms | {card}")
+        del model, proj, b, sp, a, o, ga, go, cot
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -21,28 +21,49 @@
 //     d opac  = -2 dq / max(opacity, 1e-20),        d (r, g, b, 1, depth) = (dR, dG, dB, dWsum, dDepth) w;
 //   channels 11-15 are zero. Rows past tile_starts[T] are not written.
 //
-// What bounds it on this card: instruction issue. Every (pixel, in-segment
-// pair) of the composited chunks re-evaluates K1's gates (14 unfused f32
-// instructions and one exponential, raster_common.cuh) and one warp vote;
-// a pair that is live in a warp adds ~40 instructions of gradient math, two
-// special-function calls, and a reduction of 11 values over the warp (55
-// shuffles and adds). Bytes are small: 40 B read and 64 B written per pair,
-// 8 rows of 4 B read per pixel.
+// What bounds it on this card: instruction issue (128 thread instructions
+// per clock per SM), then the special-function units (16 per clock per SM:
+// an exponential per gate, and a logarithm, an exponential and a reciprocal
+// per live (pixel, pair)), then the shuffles of the warp reductions (32 per
+// clock per SM). The complete bound in chip_smoke.py (`K2_COST`) charges,
+// from counts taken on the run's data, the cull test of every (warp, pair)
+// of the composited chunks, the quad's q, four gates and a vote for every
+// (warp, pair) the cull keeps, a 16-shuffle reduction for every (warp,
+// pair) with a live pixel, the gradient of every live (pixel, pair) and the
+// rows' cross-warp sums: 0.379 ms at 1080p with 1M gaussians, instruction
+// issue (shuffles 0.094 ms, bytes 0.071 ms). The kernel takes ~1.14 ms
+// there. What holds it above the bound, as measured by raster_steps.py:
+// the gradient runs for all four pixels of a warp that has a live one, and
+// the grid's tail (the heaviest tile alone takes 0.35 ms; launching the
+// tiles heaviest first, by K1's composited pairs, would save ~12%, which
+// needs an order passed to the kernel).
 //
-// What the design does about that: one block per tile, one thread per
-// pixel, as K1; each live chunk's 10 needed channels are staged once in
-// shared memory and read as broadcasts. A warp skips the reduction of a
-// pair that none of its pixels composited (one __any_sync). The sum over
-// the tile's pixels is taken in a fixed order with no atomics: a butterfly
-// of warp shuffles, then, per sub-block of 32 pairs, one thread per (pair,
-// channel) adds the warps' partials from shared memory in warp order and
-// writes the row. Segments partition the sorted list, so each row is
-// written by exactly one block and two runs give the same bits. The TPU
-// kernel's read-modify-write of the boundary chunk is not needed: a block
-// writes only the rows of its own segment. Its MXU formulation (moment
-// matrices, triangular-matmul suffix sums, bf16 splits) is not carried
-// over; the rewind is per pixel rather than per chunk, which moves values
-// only by rounding.
+// What the design does about it (raster_common.cuh holds the shared
+// parts): one block per tile, one thread per 2x2 pixel quad as K1, 256
+// threads at tile_size 32, at most 85 registers so that three blocks share
+// an SM (a barrier idles only its own block; two blocks per SM measured
+// 10% slower). Each live chunk is staged once as 48-byte lanes with the
+// pair's support extent; a warp tests 32 pairs at once against its 16x8
+// box, zeroes the partials of the pairs it culls, and walks the kept ones
+// in reverse, voting (one __any_sync) before any gradient math. A thread
+// takes its four pixels' gradients as straight-line code with selects and
+// sums them in registers; the warp then sums the 11 values with one
+// transpose reduction: values padded to 16, at offset 16 each lane keeps 8
+// and sends 8, then 4, 2, 1 and 1 shuffles, 16 in all (the
+// one-butterfly-per-value form took 55), after which lanes 2c and 2c+1 hold
+// channel c. The gradient's exponential and divide are the fast
+// `__expf` / `__fdividef` (within ~1e-6 relative; the gates and the rewind's
+// log1p stay those of K1). Per sub-block of 128 pairs (one chunk at the
+// default chunk_size), one thread per (pair, channel) adds the warps'
+// partials from shared memory in warp order and writes the row. Every sum
+// has a fixed order and there are no atomics: segments partition the sorted
+// list, so each row is written by exactly one block and two runs give the
+// same bits. The TPU kernel's read-modify-write of the boundary chunk is not
+// needed: a block writes only the rows of its own segment. Its MXU
+// formulation (moment matrices, triangular-matmul suffix sums, bf16 splits)
+// is not carried over, nor are tensor cores used: the gates must be K1's,
+// rounded term by term (raster_common.cuh). The rewind is per pixel rather
+// than per chunk, which moves values only by rounding.
 
 #include <cuda_runtime.h>
 
@@ -50,36 +71,52 @@
 
 namespace {
 
-using gs::kLane;
 using gs::kNch;
 using gs::kNout;
+using gs::kQuads;
+using gs::Lane;
 
-constexpr int kSub = 32;   // pairs reduced together
+constexpr int kSub = 128;  // pairs reduced together
 constexpr int kRed = 11;   // per-pixel values summed per pair (channels 0-10)
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One step of the transpose reduction over `n` values at lane distance
+// `off`: the lane with that bit set keeps the upper half and sends the
+// lower, its partner the reverse.
+template <int n, int off>
+__device__ __forceinline__ void transpose_step(float* v, bool upper) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  for (int i = 0; i < n; ++i) {
+    const float send = upper ? v[i] : v[i + n];
+    const float keep = upper ? v[i + n] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, off);
+  }
 }
 
-__global__ void __launch_bounds__(1024) backward_kernel(
+// The warp sum of each of 16 per-lane values, in a fixed order: returns the
+// sum of value (lane >> 1) in lanes 2c and 2c+1.
+__device__ __forceinline__ float warp_transpose_sum(float v[16], int lane) {
+  transpose_step<8, 16>(v, lane & 16);
+  transpose_step<4, 8>(v, lane & 8);
+  transpose_step<2, 4>(v, lane & 4);
+  transpose_step<1, 2>(v, lane & 2);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
+
+__global__ void __launch_bounds__(256, 3) backward_kernel(
     const float* __restrict__ payload, const int* __restrict__ tile_starts,
     const float* __restrict__ fwd, const float* __restrict__ cot,
     int tile_size, int chunk_size, int tiles_x, int tile_row0,
     float alpha_min, float alpha_max, float sigma_sq,
     float* __restrict__ dpayload) {
-  extern __shared__ float smem[];
-  float* lanes = smem;                         // chunk_size x kLane
-  float* part = smem + chunk_size * kLane;     // warps x kSub x kRed
+  extern __shared__ Lane lanes[];  // chunk_size lanes, then the partials
+  float* part = reinterpret_cast<float*>(lanes + chunk_size);  // warps x kSub x kRed
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int nwarps = blockDim.x >> 5;
   const int px = tile_size * tile_size;
-  const bool has_px = tid < px;  // the block is px rounded up to whole warps
   const int cs = chunk_size;
 
   const int start = __ldg(tile_starts + t);
@@ -98,19 +135,23 @@ __global__ void __launch_bounds__(1024) backward_kernel(
 
   const float ox = static_cast<float>((t % tiles_x) * tile_size);
   const float oy = static_cast<float>((t / tiles_x + tile_row0) * tile_size);
-  const float xl = static_cast<float>(tid % tile_size);
-  const float yl = static_cast<float>(tid / tile_size);
-  float log_t = 0.f, s_dlogt = 0.f;
-  float c_r = 0.f, c_g = 0.f, c_b = 0.f, c_w = 0.f, c_d = 0.f;
-  if (has_px) {
-    const float* c = cot + static_cast<size_t>(t) * kNout * px + tid;
-    log_t = __ldg(f + gs::kOutLogT * px + tid);
-    c_r = __ldg(c + 0 * px);
-    c_g = __ldg(c + 1 * px);
-    c_b = __ldg(c + 2 * px);
-    s_dlogt = __ldg(c + 3 * px);
-    c_w = __ldg(c + 4 * px);
-    c_d = __ldg(c + 5 * px);
+  const gs::QuadPixels pix = gs::quad_pixels(tid, tile_size);
+  float log_t[kQuads], s_dlogt[kQuads], c_r[kQuads], c_g[kQuads],
+      c_b[kQuads], c_w[kQuads], c_d[kQuads];
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    log_t[k] = s_dlogt[k] = c_r[k] = c_g[k] = c_b[k] = c_w[k] = c_d[k] = 0.f;
+    if (pix.valid >> k & 1u) {
+      const int p = (pix.y + (k >> 1)) * tile_size + pix.x + (k & 1);
+      const float* c = cot + static_cast<size_t>(t) * kNout * px + p;
+      log_t[k] = __ldg(f + gs::kOutLogT * px + p);
+      c_r[k] = __ldg(c + 0 * px);
+      c_g[k] = __ldg(c + 1 * px);
+      c_b[k] = __ldg(c + 2 * px);
+      s_dlogt[k] = __ldg(c + 3 * px);
+      c_w[k] = __ldg(c + 4 * px);
+      c_d[k] = __ldg(c + 5 * px);
+    }
   }
 
   for (int ci = n_live - 1; ci >= 0; --ci) {
@@ -120,54 +161,80 @@ __global__ void __launch_bounds__(1024) backward_kernel(
     __syncthreads();  // every thread is done with the previous chunk
     for (int j = j0 + tid; j < j1; j += blockDim.x) {
       gs::stage_pair(payload + static_cast<size_t>(cbase + j) * kNch, ox, oy,
-                     lanes + j * kLane);
+                     alpha_min, sigma_sq, lanes + j);
     }
     __syncthreads();
     for (int s1 = j1; s1 > j0; s1 -= kSub) {
       const int s0 = max(s1 - kSub, j0);
-      for (int j = s1 - 1; j >= s0; --j) {
-        const float* d = lanes + j * kLane;
-        float dx = 0.f, dy = 0.f, q = 0.f, a_raw = 0.f;
-        const bool live = has_px && gs::splat_alpha(xl, yl, d, alpha_min,
-                                                    sigma_sq, dx, dy, q, a_raw);
-        float* pp = part + (warp * kSub + (j - s0)) * kRed;
-        if (!__any_sync(kFull, live)) {
-          if (lane == 0) {
+      for (int jt = s1; jt > s0; jt -= 32) {
+        // The warp tests up to 32 pairs at once, one per lane, zeroes the
+        // partials of those it culls, then walks the kept ones in reverse
+        // depth order.
+        const int jb = max(jt - 32, s0);
+        unsigned todo = gs::kept_pairs(pix, lanes, jb, jt);
+        if (jb + lane < jt && !(todo >> lane & 1u)) {
+          float* pp = part + (warp * kSub + (jb + lane - s0)) * kRed;
 #pragma unroll
-            for (int k = 0; k < kRed; ++k) pp[k] = 0.f;
+          for (int c = 0; c < kRed; ++c) pp[c] = 0.f;
+        }
+        while (todo) {
+          const int bit = 31 - __clz(todo);
+          todo &= ~(1u << bit);
+          const int j = jb + bit;
+          const float4 cull = lanes[j].cull;
+          const float4 conic = lanes[j].conic;
+          const float4 col = lanes[j].color;
+          float dx[2], dy[2], q[kQuads], a_raw[kQuads];
+          gs::quad_q(pix, cull, conic, dx, dy, q);
+          bool live[kQuads], any = false;
+#pragma unroll
+          for (int k = 0; k < kQuads; ++k) {
+            live[k] = gs::splat_alpha(q[k], conic.w, alpha_min, sigma_sq,
+                                      a_raw[k]) && (pix.valid >> k & 1u);
+            any |= live[k];
           }
-          continue;
-        }
-        float v[kRed];
+          float r = 0.f;
+          if (__any_sync(kFull, any)) {
+            // The four pixels as straight-line code with selects, so their
+            // chains overlap; a pixel that is not live keeps its state and
+            // adds zeros (its values are finite: alpha <= alpha_max < 1).
+            float v[16];
 #pragma unroll
-        for (int k = 0; k < kRed; ++k) v[k] = 0.f;
-        if (live) {
-          const float alpha = fminf(a_raw, alpha_max);
-          log_t = __fsub_rn(log_t, log1pf(-alpha));  // logT before this pair
-          const float t_in = expf(log_t);
-          const float w = alpha * t_in;
-          const float dw = c_r * d[6] + c_g * d[7] + c_b * d[8] + c_w +
-                           c_d * d[9];
-          const float dalpha =
-              a_raw < alpha_max ? dw * t_in - s_dlogt / (1.0f - alpha) : 0.f;
-          s_dlogt += dw * w;
-          const float dq = -0.5f * dalpha * alpha;
-          v[0] = -2.0f * dq * (d[2] * dx + d[3] * dy);
-          v[1] = -2.0f * dq * (d[4] * dy + d[3] * dx);
-          v[2] = dq * dx * dx;
-          v[3] = 2.0f * dq * dx * dy;
-          v[4] = dq * dy * dy;
-          v[5] = dq;
-          v[6] = c_r * w;
-          v[7] = c_g * w;
-          v[8] = c_b * w;
-          v[9] = c_w * w;
-          v[10] = c_d * w;
-        }
+            for (int k = 0; k < 16; ++k) v[k] = 0.f;
+            const float cb = 0.5f * conic.y;  // the staged lane holds 2b
 #pragma unroll
-        for (int k = 0; k < kRed; ++k) {
-          const float r = warp_sum(v[k]);
-          if (lane == 0) pp[k] = r;
+            for (int k = 0; k < kQuads; ++k) {
+              const float ddx = dx[k & 1], ddy = dy[k >> 1];
+              const float alpha = fminf(a_raw[k], alpha_max);
+              const float lt = __fsub_rn(log_t[k], log1pf(-alpha));  // logT before this pair
+              const float t_in = __expf(lt);
+              const float w = alpha * t_in;
+              const float dw = c_r[k] * col.x + c_g[k] * col.y +
+                               c_b[k] * col.z + c_w[k] + c_d[k] * col.w;
+              const float dalpha =
+                  a_raw[k] < alpha_max ? dw * t_in - __fdividef(s_dlogt[k], 1.0f - alpha)
+                                       : 0.f;
+              const float dq = live[k] ? -0.5f * dalpha * alpha : 0.f;
+              const float wl = live[k] ? w : 0.f;
+              log_t[k] = live[k] ? lt : log_t[k];
+              s_dlogt[k] = live[k] ? s_dlogt[k] + dw * w : s_dlogt[k];
+              v[0] += -2.0f * dq * (conic.x * ddx + cb * ddy);
+              v[1] += -2.0f * dq * (conic.z * ddy + cb * ddx);
+              v[2] += dq * ddx * ddx;
+              v[3] += 2.0f * dq * ddx * ddy;
+              v[4] += dq * ddy * ddy;
+              v[5] += dq;
+              v[6] += c_r[k] * wl;
+              v[7] += c_g[k] * wl;
+              v[8] += c_b[k] * wl;
+              v[9] += c_w[k] * wl;
+              v[10] += c_d[k] * wl;
+            }
+            r = warp_transpose_sum(v, lane);
+          }
+          if (!(lane & 1) && (lane >> 1) < kRed) {
+            part[(warp * kSub + (j - s0)) * kRed + (lane >> 1)] = r;
+          }
         }
       }
       __syncthreads();  // the sub-block's partials are in shared memory
@@ -178,7 +245,7 @@ __global__ void __launch_bounds__(1024) backward_kernel(
         if (ch < kRed) {
           for (int w = 0; w < nwarps; ++w) g += part[(w * kSub + slot) * kRed + ch];
           if (ch == 5) {
-            g = -2.0f * g / fmaxf(lanes[(s0 + slot) * kLane + 5], 1e-20f);
+            g = -2.0f * g / fmaxf(lanes[s0 + slot].conic.w, 1e-20f);
           }
         }
         dpayload[static_cast<size_t>(cbase + s0 + slot) * kNch + ch] = g;
@@ -195,10 +262,10 @@ extern "C" int gs_rasterize_backward(
     const void* cot, int num_tiles, int tile_size, int chunk_size,
     int tiles_x, int tile_row0, float alpha_min, float alpha_max,
     float sigma_sq, void* dpayload, void* stream) {
-  const int threads = (tile_size * tile_size + 31) / 32 * 32;
+  const int threads = gs::block_threads(tile_size);
   const size_t smem =
-      (static_cast<size_t>(chunk_size) * kLane +
-       static_cast<size_t>(threads / 32) * kSub * kRed) * sizeof(float);
+      static_cast<size_t>(chunk_size) * sizeof(Lane) +
+      static_cast<size_t>(threads / 32) * kSub * kRed * sizeof(float);
   // Above 48 KB a block's shared memory is dynamic only after this opt-in.
   cudaError_t e = cudaFuncSetAttribute(
       backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

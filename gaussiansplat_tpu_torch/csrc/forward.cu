@@ -17,27 +17,43 @@
 //   Output block (8, tile_size^2) per tile: R, G, B, logT, weight sum, depth
 //   sum, the number of chunks composited (as f32), 0.
 //
-// What bounds it on this card: instruction issue. Each (pixel, in-segment
-// pair) of the composited chunks costs at least 14 instructions and one
-// exponential before the gates, and ~15 more when the pair is live. The
-// multiplies and adds are not fused, so they issue at 128 per clock per SM
-// (half the 67 TFLOP/s f32 peak, which counts an FMA twice); the
-// exponentials go to the special-function units at an eighth of that rate,
-// which comes second. The bytes are only 40 B per pair read plus 32 KB per
-// tile written.
+// What bounds it on this card: instruction issue (128 thread instructions
+// per clock per SM; its multiplies and adds are rounded apart, so none
+// fuse), then the special-function units (16 per clock per SM). The
+// complete bound in chip_smoke.py (`K1_COST`) charges, from counts taken on
+// the run's data, the cull test of every (warp, pair) of the composited
+// chunks, the quad's q and four gates for every (warp, pair) the cull
+// keeps, and the compositing of every live (pixel, pair): 0.211 ms at
+// 1080p with 1M gaussians, instruction issue (bytes 0.027 ms). The kernel
+// takes ~0.65 ms there. What holds it above the bound, as measured by
+// raster_steps.py: the compositing runs for all four pixels of a thread
+// that has any live one (live (pixel, pair)s are 40% of the slots so
+// issued), and the grid's tail: the heaviest tile alone takes a third of
+// the kernel, and launching the tiles heaviest first would save ~12%, which
+// needs an order computed before the launch (a ranking inside the kernel,
+// by segment length, was measured slower and is not kept).
 //
-// What the design does about that: one block per tile and one thread per
-// pixel (tile_size^2 <= 1024 threads). Each aligned chunk's 10 needed
-// channels are staged once in shared memory (10 x 4 B x chunk_size, 5 KB at
-// 128) and read by all threads as broadcasts, so device memory is touched
-// once per pair per tile. A thread composites its pixel sequentially in depth
-// order and skips gated pairs; the tile's early exit is one
+// What the design does about it (raster_common.cuh holds the shared parts):
+// one block per tile, one thread per 2x2 pixel quad, 256 threads at
+// tile_size 32 (at most 85 registers: three blocks share an SM). Each
+// aligned chunk is staged once into shared memory as 48-byte lanes (three
+// 16-byte loads of the row), with the pair's support extent computed once
+// per pair. A warp tests 32 staged pairs at once against its 16x8-pixel
+// box, one per lane, and walks only the kept ones, reading each with
+// 16-byte broadcast loads; the cull removes 61% of the (warp, pair)s at
+// 1080p. For a kept pair a thread shares the per-column and per-row terms of
+// q between its four pixels and composites the four as straight-line code
+// with selects, so their exp / log1p chains overlap. Each pixel composites
+// in depth order with the same rounded arithmetic as the one-thread-per-pixel
+// kernel before it, so the output is bit-identical to that kernel's
+// (compare_forward_builds.py); the tile's early exit is one
 // __syncthreads_or per chunk. The TPU kernel's MXU formulation (polynomial
 // basis, triangular-matmul prefix sums, bf16 Dekker splits) is not carried
-// over. q is evaluated with explicitly rounded multiplies and adds (no FMA
-// contraction) in the order of the plain version, so the alpha gates flip
-// only where exp / log1p round differently; the staging and the gates live
-// in raster_common.cuh, which the backward kernel (backward.cu) shares.
+// over, and tensor cores are not used: q is six rounded terms per (pixel,
+// pair) that K2 must reproduce gate for gate, which a TF32 or bf16 product
+// would not (raster_common.cuh). Staging is not overlapped with compute: a
+// tile composites ~2 chunks on average at 1080p, each for tens of
+// microseconds, against a copy of ~1 us that the SM's other blocks cover.
 
 #include <cuda_runtime.h>
 
@@ -45,16 +61,17 @@
 
 namespace {
 
-using gs::kLane;
 using gs::kNch;
 using gs::kNout;
+using gs::kQuads;
+using gs::Lane;
 
-__global__ void forward_kernel(
+__global__ void __launch_bounds__(256, 3) forward_kernel(
     const float* __restrict__ payload, const int* __restrict__ tile_starts,
     int tile_size, int chunk_size, int tiles_x, int tile_row0,
     float alpha_min, float alpha_max, float sigma_sq, float log_eps,
     float* __restrict__ out) {
-  extern __shared__ float lanes[];  // chunk_size x kLane
+  extern __shared__ Lane lanes[];  // chunk_size lanes
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int px = tile_size * tile_size;
@@ -67,11 +84,14 @@ __global__ void forward_kernel(
 
   const float ox = static_cast<float>((t % tiles_x) * tile_size);
   const float oy = static_cast<float>((t / tiles_x + tile_row0) * tile_size);
-  const float xl = static_cast<float>(tid % tile_size);
-  const float yl = static_cast<float>(tid / tile_size);
+  const gs::QuadPixels pix = gs::quad_pixels(tid, tile_size);
 
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_w = 0.f, acc_d = 0.f;
-  float log_t = 0.f;
+  float acc_r[kQuads], acc_g[kQuads], acc_b[kQuads], acc_w[kQuads],
+      acc_d[kQuads], log_t[kQuads];
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    acc_r[k] = acc_g[k] = acc_b[k] = acc_w[k] = acc_d[k] = log_t[k] = 0.f;
+  }
   int ci = 0;
   bool alive = true;
   while (ci < n_chunks && alive) {
@@ -80,37 +100,70 @@ __global__ void forward_kernel(
     const int j1 = min(end - cbase, cs);
     __syncthreads();  // every thread is done with the previous chunk
     for (int j = j0 + tid; j < j1; j += blockDim.x) {
-      gs::stage_pair(payload + static_cast<size_t>(cbase + j) * kNch, ox,
-                     oy, lanes + j * kLane);
+      gs::stage_pair(payload + static_cast<size_t>(cbase + j) * kNch, ox, oy,
+                     alpha_min, sigma_sq, lanes + j);
     }
     __syncthreads();
-    for (int j = j0; j < j1; ++j) {
-      const float* d = lanes + j * kLane;
-      float dx, dy, q, a_raw;
-      if (gs::splat_alpha(xl, yl, d, alpha_min, sigma_sq, dx, dy, q, a_raw)) {
-        const float alpha = fminf(a_raw, alpha_max);
-        const float w = __fmul_rn(alpha, expf(log_t));
-        acc_r = __fadd_rn(acc_r, __fmul_rn(w, d[6]));
-        acc_g = __fadd_rn(acc_g, __fmul_rn(w, d[7]));
-        acc_b = __fadd_rn(acc_b, __fmul_rn(w, d[8]));
-        acc_w = __fadd_rn(acc_w, w);
-        acc_d = __fadd_rn(acc_d, __fmul_rn(w, d[9]));
-        log_t = __fadd_rn(log_t, log1pf(-alpha));
+    for (int jb = j0; jb < j1; jb += 32) {
+      // The warp tests 32 pairs at once, one per lane, then walks the kept
+      // ones in depth order.
+      unsigned todo = gs::kept_pairs(pix, lanes, jb, j1);
+      while (todo) {
+        const int j = jb + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float4 cull = lanes[j].cull;
+        const float4 conic = lanes[j].conic;
+        const float4 col = lanes[j].color;
+        float dx[2], dy[2], q[kQuads], a_raw[kQuads];
+        gs::quad_q(pix, cull, conic, dx, dy, q);
+        bool live[kQuads], any = false;
+#pragma unroll
+        for (int k = 0; k < kQuads; ++k) {
+          live[k] = gs::splat_alpha(q[k], conic.w, alpha_min, sigma_sq,
+                                    a_raw[k]) && (pix.valid >> k & 1u);
+          any |= live[k];
+        }
+        if (!any) continue;
+        // The four pixels' compositing as straight-line code with selects,
+        // so their exp / log1p chains overlap; a pixel that is not live
+        // keeps its values.
+#pragma unroll
+        for (int k = 0; k < kQuads; ++k) {
+          const float alpha = fminf(a_raw[k], alpha_max);
+          const float w = __fmul_rn(alpha, expf(log_t[k]));
+          const float ell = log1pf(-alpha);
+          acc_r[k] = live[k] ? __fadd_rn(acc_r[k], __fmul_rn(w, col.x)) : acc_r[k];
+          acc_g[k] = live[k] ? __fadd_rn(acc_g[k], __fmul_rn(w, col.y)) : acc_g[k];
+          acc_b[k] = live[k] ? __fadd_rn(acc_b[k], __fmul_rn(w, col.z)) : acc_b[k];
+          acc_w[k] = live[k] ? __fadd_rn(acc_w[k], w) : acc_w[k];
+          acc_d[k] = live[k] ? __fadd_rn(acc_d[k], __fmul_rn(w, col.w)) : acc_d[k];
+          log_t[k] = live[k] ? __fadd_rn(log_t[k], ell) : log_t[k];
+        }
       }
     }
     ++ci;
-    alive = __syncthreads_or(log_t > log_eps) != 0;
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+      open |= (pix.valid >> k & 1u) && log_t[k] > log_eps;
+    }
+    alive = __syncthreads_or(open) != 0;
   }
 
-  float* o = out + static_cast<size_t>(t) * kNout * px + tid;
-  o[0 * px] = acc_r;
-  o[1 * px] = acc_g;
-  o[2 * px] = acc_b;
-  o[3 * px] = log_t;
-  o[4 * px] = acc_w;
-  o[5 * px] = acc_d;
-  o[6 * px] = static_cast<float>(ci);
-  o[7 * px] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    if (!(pix.valid >> k & 1u)) continue;
+    float* o = out + static_cast<size_t>(t) * kNout * px +
+               (pix.y + (k >> 1)) * tile_size + pix.x + (k & 1);
+    o[0 * px] = acc_r[k];
+    o[1 * px] = acc_g[k];
+    o[2 * px] = acc_b[k];
+    o[3 * px] = log_t[k];
+    o[4 * px] = acc_w[k];
+    o[5 * px] = acc_d[k];
+    o[6 * px] = static_cast<float>(ci);
+    o[7 * px] = 0.f;
+  }
 }
 
 }  // namespace
@@ -120,8 +173,13 @@ extern "C" int gs_rasterize_forward(
     int tile_size, int chunk_size, int tiles_x, int tile_row0,
     float alpha_min, float alpha_max, float sigma_sq, float log_eps,
     void* out, void* stream) {
-  const int threads = tile_size * tile_size;
-  const size_t smem = static_cast<size_t>(chunk_size) * kLane * sizeof(float);
+  const int threads = gs::block_threads(tile_size);
+  const size_t smem = static_cast<size_t>(chunk_size) * sizeof(Lane);
+  // Above 48 KB a block's shared memory is dynamic only after this opt-in.
+  cudaError_t e = cudaFuncSetAttribute(
+      forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   forward_kernel<<<num_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(payload), static_cast<const int*>(tile_starts),
       tile_size, chunk_size, tiles_x, tile_row0, alpha_min, alpha_max,

@@ -1,6 +1,7 @@
 // Shared by the forward (forward.cu, K1) and backward (backward.cu, K2)
-// raster kernels: the staging of one pair's needed payload channels and the
-// alpha evaluation with its two gates.
+// raster kernels: the thread-to-pixel mapping, the staging of one pair's
+// needed payload channels with its support extent, the warp's support cull
+// and the alpha evaluation with its two gates.
 //
 // K2 rewinds each pixel's transmittance by exactly the pairs that K1
 // composited. A pair that passes a gate in one kernel and fails it in the
@@ -8,6 +9,30 @@
 // both kernels evaluate q, alpha and the gates through these functions:
 // explicitly rounded multiplies and adds (no FMA contraction), in the
 // factored order of the plain PyTorch versions (ops/tile_raster.py).
+//
+// Pixel mapping. A thread owns a 2x2 quad of pixels; a warp owns 8x4 quads,
+// a 16x8-pixel box; a tile of tile_size <= 32 is ceil(ts/16) x ceil(ts/8)
+// warps (8 warps, 256 threads at 32). Pixels past the tile's edge (odd or
+// small tile sizes) are masked per pixel. Per pair, a thread loads the
+// staged lane once for its four pixels and shares the per-x and per-y terms
+// of q between them (26 rounded instructions for four q's, not 44).
+//
+// Support cull. At staging, each pair gets a q cut (qcut) at or above every
+// q that can pass both gates, and the half-widths (hx, hy) of the ellipse
+// q <= qcut, widened for the rounding of q. A warp whose 16x8 box lies
+// outside mean +- (hx, hy) skips the pair: no gate evaluation and, in K2, no
+// vote. The warp tests 32 pairs at once, one per lane. The cull is exact
+// only because it is conservative: it never skips a (pixel, pair) that the
+// gates pass (tests/test_torch_raster.py holds the plain twin,
+// ops/tile_raster.support_extent, to that; K1's bit-identity with the build
+// before the cull is how the card judges it). A per-pixel test of q against
+// qcut before the exponential was measured slower (raster_steps.py) and is
+// not kept.
+//
+// No tensor cores: q is six rounded terms per (pixel, pair), and K1 and K2
+// must agree on every gate. A TF32 or bf16 product of a pixel basis (the TPU
+// kernel's MXU form) would need Dekker splits to keep f32 accuracy, and
+// would still move the gates.
 
 #pragma once
 
@@ -16,43 +41,164 @@
 namespace gs {
 
 constexpr int kNch = 16;   // payload channels per row
-constexpr int kLane = 10;  // staged floats per pair
 constexpr int kNout = 8;   // output rows per tile of the forward block
 constexpr int kOutLogT = 3;
 constexpr int kOutStop = 6;
+constexpr int kQuads = 4;  // pixels per thread (a 2x2 quad)
 
-// Staged lane layout: mx - ox, my - oy, conic a, b, c, opacity, r, g, b,
-// depth (payload channels 0-8 and 10; channel 9 is the constant 1).
-__device__ __forceinline__ void stage_pair(const float* __restrict__ row,
-                                           float ox, float oy, float* d) {
-  d[0] = __fsub_rn(__ldg(row + 0), ox);
-  d[1] = __fsub_rn(__ldg(row + 1), oy);
-  d[2] = __ldg(row + 2);
-  d[3] = __ldg(row + 3);
-  d[4] = __ldg(row + 4);
-  d[5] = __ldg(row + 5);
-  d[6] = __ldg(row + 6);
-  d[7] = __ldg(row + 7);
-  d[8] = __ldg(row + 8);
-  d[9] = __ldg(row + 10);
+// Staged lane of one pair: three float4, read with 16-byte shared loads.
+//   cull:  mean x - ox, mean y - oy (tile-local), half-widths hx, hy
+//   conic: a, 2b, c, opacity
+//   color: r, g, b, depth
+struct Lane {
+  float4 cull, conic, color;
+};
+
+// The tile's thread layout: warps across and down, and threads per block.
+__host__ __device__ inline int warps_x(int tile_size) {
+  return (tile_size + 15) / 16;
+}
+__host__ __device__ inline int warps_y(int tile_size) {
+  return (tile_size + 7) / 8;
+}
+__host__ __device__ inline int block_threads(int tile_size) {
+  return 32 * warps_x(tile_size) * warps_y(tile_size);
 }
 
-// Pixel (xl, yl) in tile-local integer coordinates against one staged pair:
-// the offsets dx, dy, the quadratic form q and alpha before the clamp.
-// Returns whether the pair is live there (alpha_raw >= alpha_min and
-// q <= sigma^2).
-__device__ __forceinline__ bool splat_alpha(float xl, float yl,
-                                            const float* d, float alpha_min,
-                                            float sigma_sq, float& dx,
-                                            float& dy, float& q,
-                                            float& a_raw) {
-  dx = __fsub_rn(xl, d[0]);
-  dy = __fsub_rn(yl, d[1]);
-  q = __fadd_rn(
-      __fadd_rn(__fmul_rn(__fmul_rn(d[2], dx), dx),
-                __fmul_rn(__fmul_rn(__fmul_rn(2.0f, d[3]), dx), dy)),
-      __fmul_rn(__fmul_rn(d[4], dy), dy));
-  a_raw = __fmul_rn(d[5], expf(__fmul_rn(-0.5f, q)));
+// One thread's quad and its warp's pixel box, in tile-local integer
+// coordinates (pixel centres at integers, no +0.5).
+struct QuadPixels {
+  float x0, y0;            // the quad's top-left pixel; the others at +1
+  float bx0, bx1, by0, by1;  // the warp's box, clipped to the tile
+  int x, y;                // integer top-left
+  unsigned valid;          // bit p: pixel p (x + (p & 1), y + (p >> 1)) in the tile
+};
+
+__device__ __forceinline__ QuadPixels quad_pixels(int tid, int tile_size) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wx = warp % warps_x(tile_size);
+  const int wy = warp / warps_x(tile_size);
+  QuadPixels p;
+  p.x = 16 * wx + 2 * (lane & 7);
+  p.y = 8 * wy + 2 * (lane >> 3);
+  p.x0 = static_cast<float>(p.x);
+  p.y0 = static_cast<float>(p.y);
+  p.bx0 = static_cast<float>(16 * wx);
+  p.bx1 = static_cast<float>(min(16 * wx + 15, tile_size - 1));
+  p.by0 = static_cast<float>(8 * wy);
+  p.by1 = static_cast<float>(min(8 * wy + 7, tile_size - 1));
+  p.valid = 0;
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    if (p.x + (k & 1) < tile_size && p.y + (k >> 1) < tile_size) p.valid |= 1u << k;
+  }
+  return p;
+}
+
+// The support of one pair, shared with the plain twin
+// ops/tile_raster.support_extent (same formula, same roundings up to logf
+// and sqrtf, whose few-ulp differences the margins cover).
+//   r2   = min(sigma^2, 2 log(opacity / alpha_min)), at least 0: past it a
+//          gate fails (below alpha_min no pixel is live, and 0 keeps the
+//          cut finite);
+//   qcut = r2 + 1e-4 |r2| + 1e-4: covers the rounding of log and of the
+//          explicitly rounded alpha (~1e-6 relative), so q > qcut fails;
+//   hx, hy = sqrt(qbox c / det), sqrt(qbox a / det), the half-widths of the
+//          ellipse q <= qbox, qbox = qcut (1 + 1e-4 + 4e-6 kappa), where
+//          kappa = (a + c)^2 / det bounds the conic's condition number: the
+//          rounded q of a pixel is at least (1 - 16 u kappa) of its exact q
+//          at the rounded offsets (u = 2^-24), so a pixel outside the box
+//          has a rounded q above qcut.
+// No cull (infinite extent) unless a > 0, det = ac - b^2 > 0 and
+// kappa <= 6.25e4.
+__device__ __forceinline__ void support_extent(float a, float b, float c,
+                                               float op, float alpha_min,
+                                               float sigma_sq, float& qcut,
+                                               float& hx, float& hy) {
+  const float r2 = fmaxf(
+      fminf(sigma_sq, __fmul_rn(2.0f, logf(__fdiv_rn(op, alpha_min)))), 0.0f);
+  qcut = __fadd_rn(__fadd_rn(r2, __fmul_rn(1e-4f, fabsf(r2))), 1e-4f);
+  const float det = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, b));
+  const float s = __fadd_rn(a, c);
+  const float kappa = __fdiv_rn(__fmul_rn(s, s), det);
+  hx = hy = __int_as_float(0x7f800000);  // +inf: no cull
+  if (a > 0.0f && det > 0.0f && kappa <= 6.25e4f) {
+    const float qbox = fmaxf(
+        __fmul_rn(qcut, __fadd_rn(1.0001f, __fmul_rn(4e-6f, kappa))), 0.0f);
+    hx = sqrtf(__fdiv_rn(__fmul_rn(qbox, c), det));
+    hy = sqrtf(__fdiv_rn(__fmul_rn(qbox, a), det));
+  }
+}
+
+// Stage payload row `row` (64 B, 16-byte aligned) as a Lane for the tile at
+// (ox, oy): three 16-byte loads of channels 0-11.
+__device__ __forceinline__ void stage_pair(const float* __restrict__ row,
+                                           float ox, float oy, float alpha_min,
+                                           float sigma_sq, Lane* lane) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4 p0 = __ldg(r4 + 0);  // mx, my, a, b
+  const float4 p1 = __ldg(r4 + 1);  // c, opacity, r, g
+  const float4 p2 = __ldg(r4 + 2);  // b, 1, depth, (11)
+  float qcut, hx, hy;
+  support_extent(p0.z, p0.w, p1.x, p1.y, alpha_min, sigma_sq, qcut, hx, hy);
+  lane->cull = make_float4(__fsub_rn(p0.x, ox), __fsub_rn(p0.y, oy), hx, hy);
+  lane->conic = make_float4(p0.z, __fmul_rn(2.0f, p0.w), p1.x, p1.y);
+  lane->color = make_float4(p1.z, p1.w, p2.x, p2.z);
+}
+
+// Whether the warp's box may hold a pixel inside the pair's support.
+// Rounding is monotone, so the box's extreme offsets bound every pixel's
+// rounded offset dx = x - mx.
+__device__ __forceinline__ bool box_hits(const QuadPixels& p, float4 cull) {
+  return __fsub_rn(p.bx0, cull.x) <= cull.z &&
+         __fsub_rn(p.bx1, cull.x) >= -cull.z &&
+         __fsub_rn(p.by0, cull.y) <= cull.w &&
+         __fsub_rn(p.by1, cull.y) >= -cull.w;
+}
+
+// The pairs of [jb, min(jb + 32, j1)) whose extent meets the warp's box, as
+// a mask (bit b: pair jb + b). Lane b tests pair jb + b, so the warp tests
+// 32 pairs with one shared load each and never waits on a culled pair.
+// Every lane of the warp must call it.
+__device__ __forceinline__ unsigned kept_pairs(const QuadPixels& p,
+                                               const Lane* lanes, int jb,
+                                               int j1) {
+  const int j = jb + (threadIdx.x & 31);
+  return __ballot_sync(0xffffffffu, j < j1 && box_hits(p, lanes[j].cull));
+}
+
+// The quad's offsets and quadratic forms against one pair, in the order of
+// the single-pixel formula
+//   q = ((a dx) dx + ((2b) dx) dy) + (c dy) dy
+// with (a dx) dx, (2b) dx and (c dy) dy computed once per column or row.
+// Pixel k is (x0 + (k & 1), y0 + (k >> 1)).
+__device__ __forceinline__ void quad_q(const QuadPixels& p, float4 cull,
+                                       float4 conic, float dx[2], float dy[2],
+                                       float q[kQuads]) {
+  dx[0] = __fsub_rn(p.x0, cull.x);
+  dx[1] = __fsub_rn(__fadd_rn(p.x0, 1.0f), cull.x);
+  dy[0] = __fsub_rn(p.y0, cull.y);
+  dy[1] = __fsub_rn(__fadd_rn(p.y0, 1.0f), cull.y);
+  float ax[2], bx[2], cy[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ax[i] = __fmul_rn(__fmul_rn(conic.x, dx[i]), dx[i]);
+    bx[i] = __fmul_rn(conic.y, dx[i]);
+    cy[i] = __fmul_rn(__fmul_rn(conic.z, dy[i]), dy[i]);
+  }
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    q[k] = __fadd_rn(__fadd_rn(ax[k & 1], __fmul_rn(bx[k & 1], dy[k >> 1])),
+                     cy[k >> 1]);
+  }
+}
+
+// Alpha before the clamp of a pixel with quadratic form q, and whether the
+// pair is live there (alpha_raw >= alpha_min and q <= sigma^2).
+__device__ __forceinline__ bool splat_alpha(float q, float op, float alpha_min,
+                                            float sigma_sq, float& a_raw) {
+  a_raw = __fmul_rn(op, expf(__fmul_rn(-0.5f, q)));
   return a_raw >= alpha_min && q <= sigma_sq;
 }
 

@@ -21,8 +21,8 @@ from ..binning import tile_grid
 from ..projection import PAYLOAD_DIM
 from ..tile_raster import rasterize_backward_torch
 from .build import CudaKernel
-from .common import NOUT
-from .forward import _check_tile_size
+from .common import LANE_BYTES, NOUT, raster_warps
+from .forward import MAX_SMEM, _check_payload, _check_tile_size
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +35,9 @@ BACKWARD = CudaKernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
 )
 
-# Shared memory a block may opt into on sm_90 (232,448 bytes).
-_MAX_SMEM = 227 * 1024
+# Pairs whose per-warp partial rows K2 keeps in shared memory at once
+# (kSub in csrc/backward.cu), 11 summed channels each.
+_SUB_PAIRS, _SUB_CHANNELS = 128, 11
 
 __all__ = ["BACKWARD", "rasterize_backward_cuda", "rasterize_backward_torch"]
 
@@ -78,11 +79,12 @@ def rasterize_backward_cuda(
         if t.dtype != torch.float32 or tuple(t.shape) != (num_tiles, NOUT, px):
             raise ValueError(f"{name} must be ({num_tiles}, {NOUT}, {px}) "
                              f"float32, got {tuple(t.shape)} {t.dtype}")
-    warps = -(-px // 32)
-    smem = (cfg.chunk_size * 10 + warps * 32 * 11) * 4
-    if smem > _MAX_SMEM:
+    _check_payload(sorted_payload)
+    wx, wy = raster_warps(cfg.tile_size)
+    smem = cfg.chunk_size * LANE_BYTES + wx * wy * _SUB_PAIRS * _SUB_CHANNELS * 4
+    if smem > MAX_SMEM:
         raise ValueError(f"chunk_size {cfg.chunk_size} needs {smem} B of "
-                         f"shared memory per block, above {_MAX_SMEM}")
+                         f"shared memory per block, above {MAX_SMEM}")
     out = torch.empty_like(sorted_payload)
     if num_tiles == 0:
         return out

@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C launcher that takes device pointers
 and a stream and returns the launch's `cudaGetLastError()`. It is compiled
 by `nvcc` for sm_90a into its own shared library under `_build/` (listed in
 .gitignore) at first use; the library's file name carries a hash of the
-source, the shared `csrc/*.cuh` headers and the flags, so an edited source
-is never served a stale build.
+source, the `*.cuh` headers beside it and the flags, so an edited source
+or header is never served a stale build.
 `build_all` starts one `nvcc` per source, all at once.
 
 Nothing is built or loaded when this module is imported.
@@ -61,8 +61,12 @@ class CudaKernel:
         return self.source.stem
 
     def library_path(self) -> Path:
+        # The headers beside the source are the ones nvcc includes: hash
+        # those, not the checkout's, or a source built from another tree
+        # with the same .cu but other headers would reuse this tree's build.
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC_DIR.glob("*.cuh")):
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode())
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
@@ -117,11 +121,17 @@ class CudaKernel:
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:
-    """Build every given kernel, one nvcc process per source, in parallel."""
+    """Build every given kernel, one nvcc process per distinct library, in
+    parallel. Kernels whose sources hash alike share one build and its log."""
     kernels = list(kernels)
-    procs = [k._start_build() for k in kernels]
-    for k, p in zip(kernels, procs):
+    first = {}
+    for k in kernels:
+        first.setdefault(k.library_path(), k)
+    procs = [(k, k._start_build()) for k in first.values()]
+    for k, p in procs:
         k._finish_build(p)
+    for k in kernels:
+        k.build_log = k.build_log or first[k.library_path()].build_log
     return kernels
 
 

@@ -1,4 +1,5 @@
-"""Channel and output-row constants shared by the raster kernels.
+"""Channel and output-row constants shared by the raster kernels, and
+their thread layout (csrc/raster_common.cuh).
 
 Payload channels match ops/projection.py; the forward kernel's per-tile
 output block is (NOUT, tile_px) with the rows below.
@@ -14,3 +15,15 @@ NCH = 16
 # stopped (read by the backward pass).
 OUT_R, OUT_G, OUT_B, OUT_LOGT, OUT_WSUM, OUT_DEPTH, OUT_STOP = range(7)
 NOUT = 8
+
+# K1 and K2 stage each pair of a chunk as one 48-byte lane in shared memory.
+LANE_BYTES = 48
+# A thread renders a 2x2 pixel quad and a warp a 16x8-pixel box, so a tile
+# is ceil(ts / 16) x ceil(ts / 8) warps.
+WARP_BOX = (16, 8)
+
+
+def raster_warps(tile_size: int) -> tuple:
+    """(warps across, warps down) of one tile's block in K1 and K2."""
+    bw, bh = WARP_BOX
+    return -(-tile_size // bw), -(-tile_size // bh)

@@ -19,7 +19,7 @@ from ..binning import tile_grid
 from ..projection import PAYLOAD_DIM
 from ..tile_raster import log_trans_eps, rasterize_forward_torch
 from .build import CudaKernel
-from .common import NOUT
+from .common import LANE_BYTES, NOUT
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,12 +35,23 @@ FORWARD = CudaKernel(
 __all__ = ["FORWARD", "rasterize_forward_cuda", "rasterize_forward_torch"]
 
 
+# Shared memory a block may opt into on sm_90 (232,448 bytes).
+MAX_SMEM = 227 * 1024
+
+
 def _check_tile_size(tile_size: int) -> None:
-    """One block of tile_size^2 threads renders a tile: at most 1024."""
+    """One block renders a tile, one thread per 2x2 pixel quad, in warps of
+    16x8 pixels: the layout of csrc/raster_common.cuh covers tiles up to 32."""
     if not 1 <= tile_size <= 32:
         raise ValueError(
-            f"the forward kernel requires 1 <= tile_size <= 32 (got "
-            f"{tile_size}): one thread per pixel, 1024 threads per block")
+            f"the raster kernels require 1 <= tile_size <= 32 (got "
+            f"{tile_size}): one block of at most 8 warps per tile")
+
+
+def _check_payload(sorted_payload: torch.Tensor) -> None:
+    """The kernels stage each row with 16-byte loads."""
+    if not sorted_payload.is_contiguous() or sorted_payload.data_ptr() % 16:
+        raise ValueError("payload must be contiguous and 16-byte aligned")
 
 
 def rasterize_forward_cuda(
@@ -65,11 +76,12 @@ def rasterize_forward_cuda(
     if tile_starts.dtype != torch.int32 or tuple(tile_starts.shape) != (num_tiles + 1,):
         raise ValueError(f"tile_starts must be ({num_tiles + 1},) int32, got "
                          f"{tuple(tile_starts.shape)} {tile_starts.dtype}")
-    if not (sorted_payload.is_contiguous() and tile_starts.is_contiguous()):
-        raise ValueError("payload and tile_starts must be contiguous")
-    if cfg.chunk_size * 10 * 4 > 48 * 1024:
-        raise ValueError(f"chunk_size {cfg.chunk_size} exceeds 48 KB of "
-                         "shared memory per block")
+    if not tile_starts.is_contiguous():
+        raise ValueError("tile_starts must be contiguous")
+    _check_payload(sorted_payload)
+    if cfg.chunk_size * LANE_BYTES > MAX_SMEM:
+        raise ValueError(f"chunk_size {cfg.chunk_size} needs more than "
+                         f"{MAX_SMEM} B of shared memory per block")
     px = cfg.tile_size * cfg.tile_size
     out = torch.empty((num_tiles, NOUT, px), dtype=torch.float32,
                       device=sorted_payload.device)

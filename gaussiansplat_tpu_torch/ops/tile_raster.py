@@ -74,6 +74,39 @@ def log_trans_eps(cfg: RasterConfig) -> float:
 _TILE_BATCH_ELEMS = 1 << 25
 
 
+def alpha_gates(ca, cb, cc, op, dx, dy, cfg: RasterConfig):
+    """q, alpha before the clamp, and whether the pair is live (alpha_raw >=
+    alpha_min and q <= sigma^2) at pixel offsets (dx, dy): the gates of K1
+    and K2 (csrc/raster_common.cuh), in the same factored order."""
+    q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+    alpha_raw = op * torch.exp(-0.5 * q)
+    live = (alpha_raw >= cfg.alpha_min) & (q <= cfg.sigma_radius * cfg.sigma_radius)
+    return q, alpha_raw, live
+
+
+def support_extent(ca, cb, cc, op, cfg: RasterConfig):
+    """(qcut, hx, hy) of each pair: the plain twin of `support_extent` in
+    csrc/raster_common.cuh, in f32, used by the tests and chip_smoke.py.
+
+    A (pixel, pair) that passes `alpha_gates` has q <= qcut and its rounded
+    offsets within |dx| <= hx, |dy| <= hy; K1 and K2 skip the rest (see the
+    CUDA source for the margins). hx = hy = inf where the conic is not
+    positive definite or too ill-conditioned to bound the rounding of q."""
+    sigma_sq = cfg.sigma_radius * cfg.sigma_radius
+    r2 = torch.clamp(torch.fmin(torch.full_like(op, sigma_sq),
+                                2.0 * torch.log(op / cfg.alpha_min)), min=0.0)
+    qcut = (r2 + 1e-4 * r2.abs()) + 1e-4
+    det = ca * cc - cb * cb
+    s = ca + cc
+    kappa = s * s / det
+    cull = (ca > 0) & (det > 0) & (kappa <= 6.25e4)
+    qbox = torch.clamp(qcut * (1.0001 + 4e-6 * kappa), min=0.0)
+    inf = torch.full_like(op, math.inf)
+    hx = torch.where(cull, torch.sqrt(qbox * cc / det), inf)
+    hy = torch.where(cull, torch.sqrt(qbox * ca / det), inf)
+    return qcut, hx, hy
+
+
 def rasterize_forward_torch(
     sorted_payload: torch.Tensor,   # (P, 16) rows in (tile, depth) order
     tile_starts: torch.Tensor,      # (T + 1,) int32
@@ -91,7 +124,6 @@ def rasterize_forward_torch(
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
     device = sorted_payload.device
     log_eps = log_trans_eps(cfg)
-    sigma_sq = cfg.sigma_radius * cfg.sigma_radius
 
     # Aligned windows may reach up to cs rows past the last pair.
     payload = torch.cat([
@@ -135,10 +167,8 @@ def rasterize_forward_torch(
             op = chunk[..., 5][:, None, :]
             dx = xl - mx
             dy = yl - my
-            q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy  # (B, PX, CS)
-            alpha_raw = op * torch.exp(-0.5 * q)
-            live = in_seg[:, None, :] & (alpha_raw >= cfg.alpha_min) \
-                & (q <= sigma_sq)
+            _, alpha_raw, live = alpha_gates(ca, cb, cc, op, dx, dy, cfg)
+            live &= in_seg[:, None, :]                               # (B, PX, CS)
             alpha = torch.where(live, torch.clamp(alpha_raw, max=cfg.alpha_max),
                                 torch.zeros_like(alpha_raw))
             ell = torch.log1p(-alpha)
@@ -180,7 +210,6 @@ def rasterize_backward_torch(
     tiles_x, tiles_y = tile_grid(width, height, ts)
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
     device = sorted_payload.device
-    sigma_sq = cfg.sigma_radius * cfg.sigma_radius
     p = sorted_payload.shape[0]
 
     payload = torch.cat([
@@ -225,10 +254,9 @@ def rasterize_backward_torch(
             op = chunk[..., 5]
             dx = xl - mx
             dy = yl - my
-            q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy  # (B, PX, CS)
-            alpha_raw = op[:, None, :] * torch.exp(-0.5 * q)
-            live = in_seg[:, None, :] & (alpha_raw >= cfg.alpha_min) \
-                & (q <= sigma_sq)
+            _, alpha_raw, live = alpha_gates(ca, cb, cc, op[:, None, :], dx, dy,
+                                             cfg)
+            live &= in_seg[:, None, :]                               # (B, PX, CS)
             alpha = torch.where(live, torch.clamp(alpha_raw, max=cfg.alpha_max),
                                 torch.zeros_like(alpha_raw))
             unclamped = live & (alpha_raw < cfg.alpha_max)

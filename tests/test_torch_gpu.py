@@ -266,3 +266,47 @@ def test_tile_size_limit(cuda):
     model, cam = _scene(cuda, 256, 128, 128)
     with torch.no_grad(), pytest.raises(ValueError, match="tile_size"):
         render(model, cam, RasterConfig(tile_size=64), impl="cuda")
+
+
+@pytest.mark.parametrize(
+    "tile_size,chunk_size,strip",
+    [(32, 128, False), (32, 8, False), (16, 128, False), (16, 8, False),
+     (8, 128, False), (8, 8, True), (12, 128, False), (32, 128, True)],
+    ids=["ts32_cs128", "ts32_cs8", "ts16_cs128", "ts16_cs8", "ts8_cs128",
+         "ts8_cs8_strip", "ts12_partial_quads", "ts32_strip"])
+def test_raster_layouts_match_plain(cuda, tile_size, chunk_size, strip):
+    """K1 and K2 on the layouts of csrc/raster_common.cuh (a 2x2 quad per
+    thread, 16x8-pixel warps; at tile_size 8 half a warp idles, at 12 the
+    quads past the edge are masked), on whole frames and strips: K1 within
+    the image budget with equal stop rows, K2 within its row budget and the
+    same bits on two launches."""
+    cfg = RasterConfig(tile_size=tile_size, chunk_size=chunk_size)
+    kw = dict(tile_row0=1, tile_rows=3) if strip else {}
+    model, cam = _scene(cuda, 4096, 256, 192, opacity=0.99, fx=880.0)
+    with torch.no_grad():
+        proj = _project(model, cam, cfg)
+        b = bin_gaussians(proj, cam.width, cam.height, cfg, impl="cuda", **kw)
+        sp = b.gather_payload(make_payload(proj))
+        args = (sp, b.tile_starts, cam.width, cam.height, cfg)
+        fwd = rasterize_forward_cuda(*args, **kw)
+        want_fwd = rasterize_forward_torch(*args, **kw)
+        g = torch.Generator().manual_seed(tile_size + chunk_size)
+        cot = torch.randn(fwd.shape, generator=g).to(cuda)
+        cot[:, 4:] = 0.0
+        bargs = (sp, b.tile_starts, cot, fwd, cam.width, cam.height, cfg)
+        got = rasterize_backward_cuda(*bargs, **kw)
+        again = rasterize_backward_cuda(*bargs, **kw)
+        want = rasterize_backward_torch(*bargs, **kw)
+        torch.cuda.synchronize()
+    n = int(b.num_pairs)
+    assert n > 0
+    f, wf = fwd.cpu().numpy(), want_fwd.cpu().numpy()
+    for row in (0, 1, 2, 4):
+        assert_images_close(f[:, row], wf[:, row], atol=2e-4)
+    assert_images_close(np.exp(f[:, 3]), np.exp(wf[:, 3]), atol=2e-4)
+    np.testing.assert_array_equal(f[:, 6], wf[:, 6])
+    assert torch.equal(got[:n], again[:n]), "K2 is not deterministic"
+    for row in range(11):
+        _assert_rows_close(got[:n, row], want[:n, row], f"row {row}")
+    assert not got[:n, 11:].any()
+    assert float(got[:n, :6].abs().max()) > 0

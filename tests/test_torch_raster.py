@@ -15,11 +15,14 @@ sitting on a knife edge may flip: hence the outlier budget, never a strict
 allclose.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from test_torch_common import np_
 from imgcheck import assert_images_close
@@ -37,8 +40,10 @@ from gaussiansplat_tpu.ops.tile_raster import tiles_to_image as j_tiles_to_image
 from gaussiansplat_tpu_torch.config import RasterConfig
 from gaussiansplat_tpu_torch.ops.kernels.rasterize import rasterize_tiles
 from gaussiansplat_tpu_torch.ops.tile_raster import (
+    alpha_gates,
     image_to_tiles,
     rasterize_forward_torch,
+    support_extent,
     tiles_to_image,
 )
 
@@ -166,3 +171,75 @@ def test_plain_version_is_differentiable():
     (out.image.sum() + out.transmittance.sum()).backward()
     assert torch.isfinite(payload.grad).all() and payload.grad.abs().sum() > 0
     assert torch.isfinite(bg.grad).all()
+
+
+# The support cull of K1 and K2 (csrc/raster_common.cuh) skips a (pixel,
+# pair) whose rounded offsets fall outside the pair's extent (the box of
+# q <= its cut) without evaluating the gates. It is exact only if it never
+# skips a (pixel, pair) that the gates pass; its plain twin
+# `support_extent` is held to that here, on a 32x32 tile of pixels, over
+# random conics (condition numbers up to 1e6, past the cull's limit),
+# opacities down to alpha_min, and means placed so that a pixel sits on the
+# q = sigma^2 or the alpha = alpha_min knife edge.
+
+_CFG = RasterConfig()
+
+
+@st.composite
+def _splat_on_an_edge(draw):
+    lam1 = 10.0 ** draw(st.floats(-4.0, 0.6))
+    lam2 = lam1 / 10.0 ** draw(st.floats(0.0, 6.0))
+    th = draw(st.floats(0.0, math.pi))
+    cs, sn = math.cos(th), math.sin(th)
+    a = lam1 * cs * cs + lam2 * sn * sn
+    c = lam1 * sn * sn + lam2 * cs * cs
+    b = (lam1 - lam2) * cs * sn
+    amin = float(np.float32(_CFG.alpha_min))
+    op = draw(st.one_of(st.just(amin), st.floats(amin, amin * (1 + 1e-5)),
+                        st.floats(amin, 1.0)))
+    edge = draw(st.sampled_from(["sigma", "alpha", "inside"]))
+    sigma_sq = _CFG.sigma_radius ** 2
+    target = {"sigma": sigma_sq,
+              "alpha": min(sigma_sq, 2.0 * math.log(max(op / amin, 1.0))),
+              "inside": draw(st.floats(0.0, sigma_sq))}[edge]
+    phi = draw(st.floats(0.0, 2 * math.pi))
+    ux, uy = math.cos(phi), math.sin(phi)
+    dist = math.sqrt(target / (a * ux * ux + 2 * b * ux * uy + c * uy * uy))
+    px, py = draw(st.integers(0, 31)), draw(st.integers(0, 31))
+    return a, b, c, op, px - dist * ux, py - dist * uy
+
+
+@settings(max_examples=400, deadline=None, derandomize=True, database=None)
+@given(_splat_on_an_edge())
+def test_support_extent_holds_every_live_pixel(splat):
+    a, b, c, op, mx, my = (torch.tensor([v], dtype=torch.float32) for v in splat)
+    idx = torch.arange(32 * 32)
+    dx = (idx % 32).to(torch.float32) - mx
+    dy = (idx // 32).to(torch.float32) - my
+    q, _, live = alpha_gates(a, b, c, op, dx, dy, _CFG)
+    qcut, hx, hy = support_extent(a, b, c, op, _CFG)
+    inside = (q <= qcut) & (dx.abs() <= hx) & (dy.abs() <= hy)
+    assert not bool((live & ~inside).any()), (
+        f"{int((live & ~inside).sum())} live pixels outside the extent "
+        f"(qcut {float(qcut):.9g}, hx {float(hx):.9g}, hy {float(hy):.9g})")
+
+
+def test_support_extent_is_tight_and_culls():
+    # A well-conditioned conic: the half-widths are those of q = sigma^2
+    # within the margin, so the extent culls.
+    a, b, c = 0.02, 0.005, 0.01
+    t = lambda v: torch.tensor([v], dtype=torch.float32)  # noqa: E731
+    qcut, hx, hy = support_extent(t(a), t(b), t(c), t(0.8), _CFG)
+    det = a * c - b * b
+    assert float(qcut) == pytest.approx(9.0, rel=3e-4)
+    assert float(hx) == pytest.approx(math.sqrt(9.0 * c / det), rel=1e-3)
+    assert float(hy) == pytest.approx(math.sqrt(9.0 * a / det), rel=1e-3)
+    # Below alpha_min (or at opacity 0) nothing is live: the cut is the
+    # margin alone, finite.
+    for op in (0.5 / 255, 0.0):
+        qcut, hx, _ = support_extent(t(a), t(b), t(c), t(op), _CFG)
+        assert float(qcut) == pytest.approx(1e-4)
+        assert 0 < float(hx) < 0.1
+    # Not positive definite: no cull.
+    _, hx, hy = support_extent(t(0.01), t(0.02), t(0.01), t(0.8), _CFG)
+    assert math.isinf(float(hx)) and math.isinf(float(hy))
