@@ -19,9 +19,10 @@
    entry. K2 and K3 must give the same bits on two launches. Times by CUDA
    events, with the plain versions' times and K3's `index_add_` yardstick.
    K1's and K2's bounds count this run's raster work with plain PyTorch on
-   the card (`raster_work`: composited (pixel, pair)s, the (warp, pair)s the
-   support cull tests and keeps, those with a live pixel, the live (pixel,
-   pair)s) and charge it at the card's per-SM rates; every term is printed.
+   the card (`raster_work`: composited pairs, the (pixel, pair)s inside
+   each pair's support extent, the live (pixel, pair)s) and charge the
+   function's work on them at the card's per-SM rates; every term is
+   printed, and beside it the figure of the kernels' own design.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -69,47 +70,45 @@ RATES = {"instruction issue": 128 * SMS * CLOCK,
          "special-function units": 16 * SMS * CLOCK,
          "shared-memory loads": 32 * SMS * CLOCK,
          "warp shuffles": 32 * SMS * CLOCK}
-# The gate-only floor bounds of the one-thread-per-pixel kernels, kept for
-# comparison: per (pixel, in-segment pair) of the composited chunks, K1 14
-# instructions (dx, dy, the factored q, the -1/2 scale, the opacity
-# multiply, two compares) and one exponential, K2 the same plus a vote.
-# They leave out the live work.
-K1_ISSUE_PER_EVAL, K2_ISSUE_PER_EVAL, SFU_PER_EVAL = 14, 15, 1
-# The complete bounds: the work of the kernels' algorithm, by what it is
-# charged on (counts from `raster_work` on this run's data), in lane slots
-# (a warp-wide instruction is 32; a 16-byte shared load of 32 different
-# lanes takes 4 clocks, 128 slots; a broadcast one 32). The gates are
-# charged on every (warp, pair) the cull keeps, the live work on the live
-# (pixel, pair)s only, so each bound is what the kernel would take if it
-# issued nothing else, wasted no lane and never stalled:
-#   tested:    every (warp, in-segment pair) of the composited chunks, one
-#              lane each: a 16-byte load, 4 subtractions and 4 compares of
-#              the box test, the ballot (12; K2 23 with the 11 zero stores
-#              of a culled pair's partial).
-#   kept:      every (warp, pair) whose box meets the extent, per thread:
-#              the bit walk (4), three broadcast loads, the quad's four q
-#              (26 rounded instructions), four gates (scale, exp with its
-#              range reduction, opacity multiply, two compares: 11 each, one
-#              exponential each) (78; K2 80 with the vote).
-#   live_warp: K2, every (warp, pair) with a live pixel, per thread: the
-#              transpose reduction (15 steps of 2 selects, a shuffle and an
-#              add, a last shuffle and add) and the partial's store: 64, 16
-#              shuffles.
-#   live:      every live (pixel, pair): K1 the clamp, exp(logT), w, five
-#              multiply-adds and log1p (35 instructions, 2 special-function
-#              calls); K2 the rewind, exp, w, dw, dalpha with its divide
-#              (the fast exp and divide), dlogT, dq and 11 accumulations (63,
-#              3 special-function calls).
-#   pairs:     every composited pair, K2 only: 16 threads sum the 8 warps'
-#              partials (8 loads, 8 adds) and store the row.
-K1_COST = {"tested": dict(issue=12, lds=4),
-           "kept": dict(issue=78 * 32, lds=3 * 32, sfu=4 * 32),
+# The bounds count the work of the function on this run's data (counts
+# from `raster_work`), whatever the design, in thread instructions and
+# special-function calls:
+#   pairs:  every composited pair, its support extent (a logarithm, three
+#           divides and two square roots: ~30 instructions, 6 calls);
+#   inside: every (pixel, pair) inside that extent (|dx| <= hx, |dy| <= hy:
+#           the only pixels where a gate can pass), the gates: dx, dy, the
+#           factored q, the -1/2 scale, the opacity multiply and two
+#           compares (14) and an exponential;
+#   live:   every live (pixel, pair): K1 the clamp, exp(logT), w, five
+#           multiply-adds and log1p (35, 2 calls); K2 the rewind, exp, w,
+#           dw, dalpha with its divide, dlogT, dq and one add per gradient
+#           channel for the sum over pixels (63, 3 calls).
+K1_COST = {"pairs": dict(issue=30, sfu=6), "inside": dict(issue=14, sfu=1),
            "live": dict(issue=35, sfu=2)}
-K2_COST = {"tested": dict(issue=23, lds=4),
-           "kept": dict(issue=80 * 32, lds=3 * 32, sfu=4 * 32),
-           "live_warp": dict(issue=64 * 32, shfl=16 * 32),
-           "live": dict(issue=63, sfu=3),
-           "pairs": dict(issue=16 * 18, lds=16 * 8)}
+K2_COST = {"pairs": dict(issue=30, sfu=6), "inside": dict(issue=14, sfu=1),
+           "live": dict(issue=63, sfu=3)}
+# The design's figure, printed beside the bound (not the bound): the same
+# counts charged with what K1 and K2 issue, in lane slots (a warp-wide
+# instruction is 32; a 16-byte shared load of 32 lanes 128, a broadcast 32):
+#   tested:    every (warp, pair) of the composited chunks, one lane: a
+#              16-byte load, the box test, the ballot (12; K2 23 with the
+#              zero stores of a culled pair's partial);
+#   kept:      every (warp, pair) whose box meets the extent, all 32 lanes:
+#              the bit walk, three broadcast loads, the quad's q, four gates
+#              (78; K2 80 with the vote), whether or not a pixel is inside;
+#   live_warp: K2, every (warp, pair) with a live pixel, all 32 lanes: the
+#              16-shuffle transpose reduction and the partial's store (64);
+#   live:      as in the bound;
+#   rows:      K2, every composited pair: 16 threads add the 8 warps'
+#              partials and store the row.
+K1_DESIGN = {"tested": dict(issue=12, lds=4),
+             "kept": dict(issue=78 * 32, lds=3 * 32, sfu=4 * 32),
+             "live": dict(issue=35, sfu=2)}
+K2_DESIGN = {"tested": dict(issue=23, lds=4),
+             "kept": dict(issue=80 * 32, lds=3 * 32, sfu=4 * 32),
+             "live_warp": dict(issue=64 * 32, shfl=16 * 32),
+             "live": dict(issue=63, sfu=3),
+             "pairs": dict(issue=16 * 18, lds=16 * 8)}
 # K2's budget against its plain version, relative to each gradient row's
 # largest entry: all but 0.1% of the entries within 1e-4 (per-pixel against
 # per-chunk rewinding and other summation orders move them by ~1e-6), every
@@ -168,36 +167,39 @@ def assert_budget(got, want, what, atol=1e-4, outlier_frac=1e-3,
     return dmax
 
 
-def floor_bound(nbytes: float, evals: float, issue_per_eval: int) -> float:
-    """The gate-only floor bound (ms): bytes, or the gate instructions and
-    exponential of every evaluated (pixel, pair), whichever is larger."""
-    return max(nbytes / PEAK_BYTES_PER_S,
-               evals * issue_per_eval / RATES["instruction issue"],
-               evals * SFU_PER_EVAL / RATES["special-function units"]) * 1e3
-
-
 def bound(nbytes: float, work: dict, cost: dict):
-    """The complete bound (ms): each resource's total over its per-SM peak
-    rate; the largest, which one it is, and every term."""
+    """Bytes over the memory rate and each unit's total over its per-SM
+    peak rate (ms): the largest, which one it is, and every term."""
     units = {"issue": "instruction issue", "sfu": "special-function units",
              "lds": "shared-memory loads", "shfl": "warp shuffles"}
-    totals = dict.fromkeys(units.values(), 0.0)
+    totals = {}
     for item, charges in cost.items():
         for unit, per in charges.items():
-            totals[units[unit]] += work[item] * per
+            totals[units[unit]] = totals.get(units[unit], 0.0) + work[item] * per
     times = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
     times.update({k: v / RATES[k] * 1e3 for k, v in totals.items()})
     worst = max(times, key=times.get)
     return times[worst], "bytes" if worst == "bytes" else "operations", times
 
 
+def bound_text(nbytes: float, work: dict, cost: dict, design: dict) -> str:
+    """The bound with every term, and the design's figure."""
+    ms, by, parts = bound(nbytes, work, cost)
+    d_ms, _, d_parts = bound(nbytes, work, design)
+    d_by = max(d_parts, key=d_parts.get)
+    return (f"bound {ms:.4f} ms ({by}; "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"), design figure {d_ms:.4f} ms ({d_by})")
+
+
 def raster_work(sp, tile_starts, stops, cfg, batch: int = 8192) -> dict:
     """What K1 and K2 evaluate on this run's data, counted with plain
     PyTorch on the card: the in-segment pairs of the chunks K1 composited
-    (its stop row), and over them the (pixel, pair)s, the (warp, pair)s the
-    cull tests, those it keeps, those with a live pixel, and the live
-    (pixel, pair)s. Gates: ops/tile_raster.alpha_gates; extent: its twin
-    support_extent; warps: the 16x8-pixel boxes of csrc/raster_common.cuh."""
+    (its stop row), and over them the (pixel, pair)s, those inside the
+    pair's support extent, the live (pixel, pair)s, and the (warp, pair)s
+    the cull tests, those it keeps and those with a live pixel. Gates:
+    ops/tile_raster.alpha_gates; extent: its twin support_extent; warps:
+    the 16x8-pixel boxes of csrc/raster_common.cuh."""
     from gaussiansplat_tpu_torch.ops.binning import tile_grid
     from gaussiansplat_tpu_torch.ops.kernels.common import WARP_BOX, raster_warps
     from gaussiansplat_tpu_torch.ops.tile_raster import alpha_gates, support_extent
@@ -225,33 +227,38 @@ def raster_work(sp, tile_starts, stops, cfg, batch: int = 8192) -> dict:
     bx1 = torch.clamp(bx0 + bw - 1, max=ts - 1)
     by0 = ((w // wx) * bh).float()
     by1 = torch.clamp(by0 + bh - 1, max=ts - 1)
-    kept = live_warp = live = 0
+    kept = live_warp = live = inside = 0
     for i in range(0, rows.numel(), batch):
         r, t = rows[i:i + batch], tile[i:i + batch]
         pay = sp[r]
         mx = (pay[:, 0] - ((t % tiles_x) * ts).float())[:, None]
         my = (pay[:, 1] - ((t // tiles_x) * ts).float())[:, None]
         ca, cb, cc, op = (pay[:, k][:, None] for k in (2, 3, 4, 5))
-        _, _, lv = alpha_gates(ca, cb, cc, op, xl - mx, yl - my, cfg)
+        dx, dy = xl - mx, yl - my
+        _, _, lv = alpha_gates(ca, cb, cc, op, dx, dy, cfg)
         _, hx, hy = support_extent(ca, cb, cc, op, cfg)
+        inside += int(((dx.abs() <= hx) & (dy.abs() <= hy)).sum())
         hits = ((bx0 - mx <= hx) & (bx1 - mx >= -hx)
                 & (by0 - my <= hy) & (by1 - my >= -hy))
         kept += int(hits.sum())
         live_warp += int(((lv.float() @ onehot) > 0).sum())
         live += int(lv.sum())
     pairs = rows.numel()
-    return dict(pairs=pairs, evaluated=pairs * ts * ts, tested=pairs * wx * wy,
-                kept=kept, live_warp=live_warp, live=live)
+    return dict(pairs=pairs, evaluated=pairs * ts * ts, inside=inside,
+                live=live, tested=pairs * wx * wy, kept=kept,
+                live_warp=live_warp)
 
 
 def print_work(work: dict, card: str) -> None:
+    ev = max(work["evaluated"], 1)
     print("raster work on this run's data (K1 and K2 sweep the same chunks): "
           f"{work['pairs']} composited pairs, {work['evaluated']} (pixel, "
-          f"pair)s, {work['tested']} (warp, pair)s tested by the cull, "
-          f"{work['kept']} kept ({work['kept'] / max(work['tested'], 1):.4f}), "
-          f"{work['live_warp']} with a live pixel, {work['live']} live "
-          f"(pixel, pair)s ({work['live'] / max(work['evaluated'], 1):.4f} "
-          f"of those evaluated) | {card}")
+          f"pair)s, {work['inside']} inside the support extent "
+          f"({work['inside'] / ev:.4f}), {work['live']} live "
+          f"({work['live'] / ev:.4f}); {work['tested']} (warp, pair)s tested "
+          f"by the cull, {work['kept']} kept "
+          f"({work['kept'] / max(work['tested'], 1):.4f}), {work['live_warp']} "
+          f"with a live pixel | {card}")
 
 
 def project(model, cam, cfg):
@@ -324,22 +331,19 @@ def check_forward(model, cam, cfg, card: str):
 
     ms = cuda_ms(lambda: rasterize_forward_cuda(*args), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: rasterize_forward_torch(*args), reps=2)
-    # Bounds: the gate-only floor (the gates of every (pixel, pair) of the
-    # chunks K1 composited), and the complete one (`K1_COST` on the counts
-    # of this run's data). Bytes: the composited pairs' 10 needed channels
-    # read once, the output block written.
+    # Bound: `K1_COST` on the counts of this run's data. Bytes: the
+    # composited pairs' 10 needed channels read once, the output block
+    # written.
     work = raster_work(sp, b.tile_starts, stops_g, cfg)
     print_work(work, card)
     num_pairs = int(b.num_pairs)
     nbytes = work["pairs"] * 40 + got.numel() * 4 + b.tile_starts.numel() * 4
-    floor_ms = floor_bound(nbytes, work["evaluated"], K1_ISSUE_PER_EVAL)
-    bound_ms, bound_by, parts = bound(nbytes, work, K1_COST)
+    bound_ms, bound_by, _ = bound(nbytes, work, K1_COST)
     print(f"K1 forward {WIDTH}x{HEIGHT} n={model.capacity} ({t} tiles, "
           f"{num_pairs} pairs, {work['pairs']} pairs composited): image rows "
           f"max|diff| {err:.3e}; {ms:.4f} ms (CUDA events), plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-          + f"), gate-only floor bound {floor_ms:.4f} ms | {card}")
+          f"{plain_ms:.3f} ms, {bound_text(nbytes, work, K1_COST, K1_DESIGN)} "
+          f"| {card}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by), work
 
@@ -392,21 +396,19 @@ def check_backward(model, cam, cfg, work: dict, card: str):
 
     ms = cuda_ms(lambda: rasterize_backward_cuda(*args), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: rasterize_backward_torch(*args), reps=1)
-    # Bounds as K1's, on the same counts (K2 sweeps the chunks K1
+    # Bound: `K2_COST` on K1's counts (K2 sweeps the chunks K1
     # composited). Bytes: the composited pairs read (40 B), every row of the
     # segments written (64 B), 7 rows of the cotangent and forward blocks
     # read per pixel.
     px = cfg.tile_size ** 2
     nbytes = (work["pairs"] * 40 + n * 64 + fwd.shape[0] * px * 7 * 4
               + b.tile_starts.numel() * 4)
-    floor_ms = floor_bound(nbytes, work["evaluated"], K2_ISSUE_PER_EVAL)
-    bound_ms, bound_by, parts = bound(nbytes, work, K2_COST)
+    bound_ms, bound_by, _ = bound(nbytes, work, K2_COST)
     print(f"K2 backward {WIDTH}x{HEIGHT} n={model.capacity} ({n} pairs, "
           f"{work['pairs']} pairs composited): bit-equal on two launches, rows "
           f"0-10 max|diff| {err:.3e}; {ms:.4f} ms (CUDA events), plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-          + f"), gate-only floor bound {floor_ms:.4f} ms | {card}")
+          f"{plain_ms:.3f} ms, {bound_text(nbytes, work, K2_COST, K2_DESIGN)} "
+          f"| {card}")
     valid = torch.arange(got.shape[0], device=device) < n
     dsorted = got.masked_fill(~valid[:, None], 0.0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

@@ -8,7 +8,9 @@ tree with this checkout's, on the card.
 Builds `forward.cu` and `backward.cu` of the given csrc directory beside
 the checkout's own (one nvcc each, in parallel), and runs both through the
 checkout's wrappers on the 1920x1080 benchmark scene of chip_smoke.py at 1M
-and 300k gaussians:
+and 300k gaussians, and at 1M with opacities spread uniformly from
+alpha_min to 1 (about a third of the pairs then have a support cut by the
+alpha gate rather than by sigma):
 
 * K1: whether the two (T, 8, tile_px) output blocks are equal in every bit;
 * K2: on the same payload, K1's block and a seeded cotangent, the largest
@@ -17,7 +19,8 @@ and 300k gaussians:
   (`K2_BULK_ATOL` for all but `K2_BULK_FRAC` of the entries, `K2_ATOL` for
   every entry);
 * each kernel's time by CUDA events, the two builds in turns (other, this,
-  this, other).
+  this, other; every reading printed), and the card's SM clock, temperature
+  and power draw just after.
 
 Exits non-zero if K1 differs, K2 leaves its budget or no CUDA card is
 present. The two trees must export the same launchers
@@ -26,6 +29,7 @@ present. The two trees must export the same launchers
 
 from __future__ import annotations
 
+import subprocess
 import sys
 from pathlib import Path
 
@@ -52,12 +56,29 @@ def run_build(build: dict, key: str, args):
         setattr(module, attr, own)
 
 
-def time_in_turns(other: dict, ours: dict, key: str, args):
-    """(other ms, ours ms): each the mean of two timings of 10 launches,
-    taken in turns other, ours, ours, other."""
+def time_in_turns(other: dict, ours: dict, key: str, args) -> str:
+    """Four timings of 10 launches each, in turns other, ours, ours, other:
+    'other (a, b) -> ours (c, d) ms', means first."""
     t = [cs.cuda_ms(lambda w=w: run_build(w, key, args), reps=10, warmup=2)
          for w in (other, ours, ours, other)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    return (f"{(t[0] + t[3]) / 2:.4f} ({t[0]:.4f}, {t[3]:.4f}) -> "
+            f"{(t[1] + t[2]) / 2:.4f} ({t[1]:.4f}, {t[2]:.4f}) ms")
+
+
+def card_state() -> str:
+    """The card's SM clock, temperature and power draw, from nvidia-smi."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0].strip()
+
+
+def spread_opacities(model, alpha_min: float, seed: int) -> None:
+    """Set the model's opacities uniform in [alpha_min, 1), from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    op = alpha_min + (1.0 - alpha_min) * 0.999 * torch.rand(
+        model.capacity, generator=g, dtype=torch.float64)
+    model.logit_opacities.copy_(torch.log(op / (1.0 - op)).float())
 
 
 def main(argv) -> int:
@@ -87,9 +108,12 @@ def main(argv) -> int:
     card = cs.card_line()
     print(card)
     ok = True
-    for n in (1_000_000, 300_000):
+    for n, spread in ((1_000_000, False), (300_000, False), (1_000_000, True)):
         model = cs.bench_scene(n, device)
+        label = f"n={n}" + (", opacities spread" if spread else "")
         with torch.no_grad():
+            if spread:
+                spread_opacities(model, cfg.alpha_min, seed=3)
             proj = cs.project(model, cam, cfg)
             b = bin_gaussians(proj, cs.WIDTH, cs.HEIGHT, cfg, impl="cuda")
             sp = b.gather_payload(make_payload(proj))
@@ -104,7 +128,7 @@ def main(argv) -> int:
         same = torch.equal(a.view(torch.int32), o.view(torch.int32))
         ok &= same
         p = int(b.num_pairs)
-        print(f"K1 {cs.WIDTH}x{cs.HEIGHT} n={n} ({p} pairs): this checkout's "
+        print(f"K1 {cs.WIDTH}x{cs.HEIGHT} {label} ({p} pairs): this checkout's "
               f"build vs {argv[0]}: bit-identical {same}")
         worst = 0.0
         for row in range(11):
@@ -120,14 +144,13 @@ def main(argv) -> int:
                   + ("" if inside else "  OUTSIDE THE BUDGET"))
         zero = not ga[:p, 11:].any()
         ok &= zero
-        print(f"K2 n={n}: this checkout's build vs {argv[0]}: rows 0-10 within "
+        print(f"K2 {label}: this checkout's build vs {argv[0]}: rows 0-10 within "
               f"{worst:.3e} of each row's largest entry, rows 11-15 zero {zero}")
         with torch.no_grad():
-            f_other, f_ours = time_in_turns(other, ours, "fwd", fargs)
-            b_other, b_ours = time_in_turns(other, ours, "bwd", bargs)
-        print(f"times n={n} (CUDA events, 10 launches, in turns other, this, "
-              f"this, other): K1 {f_other:.4f} -> {f_ours:.4f} ms, K2 "
-              f"{b_other:.4f} -> {b_ours:.4f} ms | {card}")
+            k1 = time_in_turns(other, ours, "fwd", fargs)
+            k2 = time_in_turns(other, ours, "bwd", bargs)
+        print(f"times {label} (CUDA events, 10 launches, in turns other, this, "
+              f"this, other): K1 {k1}, K2 {k2}; after: {card_state()} | {card}")
         del model, proj, b, sp, a, o, ga, go, cot
         torch.cuda.empty_cache()
     return 0 if ok else 1

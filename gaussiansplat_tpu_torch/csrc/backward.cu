@@ -24,19 +24,20 @@
 // What bounds it on this card: instruction issue (128 thread instructions
 // per clock per SM), then the special-function units (16 per clock per SM:
 // an exponential per gate, and a logarithm, an exponential and a reciprocal
-// per live (pixel, pair)), then the shuffles of the warp reductions (32 per
-// clock per SM). The complete bound in chip_smoke.py (`K2_COST`) charges,
-// from counts taken on the run's data, the cull test of every (warp, pair)
-// of the composited chunks, the quad's q, four gates and a vote for every
-// (warp, pair) the cull keeps, a 16-shuffle reduction for every (warp,
-// pair) with a live pixel, the gradient of every live (pixel, pair) and the
-// rows' cross-warp sums: 0.379 ms at 1080p with 1M gaussians, instruction
-// issue (shuffles 0.094 ms, bytes 0.071 ms). The kernel takes ~1.14 ms
-// there. What holds it above the bound, as measured by raster_steps.py:
-// the gradient runs for all four pixels of a warp that has a live one, and
-// the grid's tail (the heaviest tile alone takes 0.35 ms; launching the
-// tiles heaviest first, by K1's composited pairs, would save ~12%, which
-// needs an order passed to the kernel).
+// per live (pixel, pair)). The bound in chip_smoke.py (`K2_COST`) counts
+// the function's work on the run's data: each composited pair's support
+// extent, the gates of every (pixel, pair) inside that extent, and for
+// every live (pixel, pair) the gradient and one add per channel of the sum
+// over pixels: 0.191 ms at 1080p with 1M gaussians, instruction issue
+// (bytes 0.071 ms). The kernel takes ~1.24 ms there, 6.5x the bound. What
+// holds it above the bound (PERF.md): the design's own work, 0.379 ms by
+// the same counts (the gates and the vote at all 128 pixels of a kept
+// (warp, pair), the gradient for all four pixels of a thread in a warp
+// with a live one, a 16-shuffle reduction per (warp, pair) with a live
+// pixel, the rows' cross-warp sums); and the grid's tail (the heaviest
+// tile alone takes 0.35 ms; launching the tiles heaviest first, by K1's
+// composited pairs, would save ~12%, which needs an order passed to the
+// kernel).
 //
 // What the design does about it (raster_common.cuh holds the shared
 // parts): one block per tile, one thread per 2x2 pixel quad as K1, 256
@@ -51,11 +52,13 @@
 // transpose reduction: values padded to 16, at offset 16 each lane keeps 8
 // and sends 8, then 4, 2, 1 and 1 shuffles, 16 in all (the
 // one-butterfly-per-value form took 55), after which lanes 2c and 2c+1 hold
-// channel c. The gradient's exponential and divide are the fast
-// `__expf` / `__fdividef` (within ~1e-6 relative; the gates and the rewind's
-// log1p stay those of K1). Per sub-block of 128 pairs (one chunk at the
-// default chunk_size), one thread per (pair, channel) adds the warps'
-// partials from shared memory in warp order and writes the row. Every sum
+// channel c. The gradient's exponential and divide are `expf` and the IEEE
+// divide: `__expf` and `__fdividef` took 8% off the kernel (PERF.md), but
+// `__expf`'s error grows with |logT| (2 + 1.16 |logT| ulp), and the kernel
+// computes the plain version's f32 function. Per sub-block of 128 pairs
+// (one chunk at the default chunk_size), one thread per (pair, channel)
+// adds the warps' partials from shared memory in warp order and writes the
+// row. Every sum
 // has a fixed order and there are no atomics: segments partition the sorted
 // list, so each row is written by exactly one block and two runs give the
 // same bits. The TPU kernel's read-modify-write of the boundary chunk is not
@@ -207,12 +210,12 @@ __global__ void __launch_bounds__(256, 3) backward_kernel(
               const float ddx = dx[k & 1], ddy = dy[k >> 1];
               const float alpha = fminf(a_raw[k], alpha_max);
               const float lt = __fsub_rn(log_t[k], log1pf(-alpha));  // logT before this pair
-              const float t_in = __expf(lt);
+              const float t_in = expf(lt);
               const float w = alpha * t_in;
               const float dw = c_r[k] * col.x + c_g[k] * col.y +
                                c_b[k] * col.z + c_w[k] + c_d[k] * col.w;
               const float dalpha =
-                  a_raw[k] < alpha_max ? dw * t_in - __fdividef(s_dlogt[k], 1.0f - alpha)
+                  a_raw[k] < alpha_max ? dw * t_in - s_dlogt[k] / (1.0f - alpha)
                                        : 0.f;
               const float dq = live[k] ? -0.5f * dalpha * alpha : 0.f;
               const float wl = live[k] ? w : 0.f;

@@ -19,19 +19,20 @@
 //
 // What bounds it on this card: instruction issue (128 thread instructions
 // per clock per SM; its multiplies and adds are rounded apart, so none
-// fuse), then the special-function units (16 per clock per SM). The
-// complete bound in chip_smoke.py (`K1_COST`) charges, from counts taken on
-// the run's data, the cull test of every (warp, pair) of the composited
-// chunks, the quad's q and four gates for every (warp, pair) the cull
-// keeps, and the compositing of every live (pixel, pair): 0.211 ms at
-// 1080p with 1M gaussians, instruction issue (bytes 0.027 ms). The kernel
-// takes ~0.65 ms there. What holds it above the bound, as measured by
-// raster_steps.py: the compositing runs for all four pixels of a thread
-// that has any live one (live (pixel, pair)s are 40% of the slots so
-// issued), and the grid's tail: the heaviest tile alone takes a third of
-// the kernel, and launching the tiles heaviest first would save ~12%, which
-// needs an order computed before the launch (a ranking inside the kernel,
-// by segment length, was measured slower and is not kept).
+// fuse), then the special-function units (16 per clock per SM). The bound
+// in chip_smoke.py (`K1_COST`) counts the function's work on the run's
+// data: each composited pair's support extent, the gates of every (pixel,
+// pair) inside that extent and the compositing of every live (pixel,
+// pair): 0.126 ms at 1080p with 1M gaussians, instruction issue (bytes
+// 0.027 ms). The kernel takes ~0.65 ms there, 5x the bound. What holds it
+// above the bound (PERF.md): the design's own work, 0.211 ms by the same
+// counts (a kept (warp, pair) evaluates the gates at all 128 pixels of the
+// warp's box, 2.1 times the (pixel, pair)s inside an extent, and a thread
+// with a live pixel composites all four of its quad); and the grid's tail:
+// the heaviest tile alone takes a third of the kernel, and launching the
+// tiles heaviest first would save ~12%, which needs an order computed
+// before the launch (a ranking inside the kernel, by segment length, was
+// measured slower and is not kept).
 //
 // What the design does about it (raster_common.cuh holds the shared parts):
 // one block per tile, one thread per 2x2 pixel quad, 256 threads at

@@ -24,10 +24,12 @@
 // vote. The warp tests 32 pairs at once, one per lane. The cull is exact
 // only because it is conservative: it never skips a (pixel, pair) that the
 // gates pass (tests/test_torch_raster.py holds the plain twin,
-// ops/tile_raster.support_extent, to that; K1's bit-identity with the build
-// before the cull is how the card judges it). A per-pixel test of q against
-// qcut before the exponential was measured slower (raster_steps.py) and is
-// not kept.
+// ops/tile_raster.support_extent, to that). On the card, K1 and K2 built
+// with GS_NO_SUPPORT_CULL (every pair kept) must give the same bits as the
+// culled build, on scenes whose opacities reach down to alpha_min
+// (tests/test_torch_gpu.py), and K1 those of the build before the cull
+// (compare_forward_builds.py). A per-pixel test of q against qcut before the
+// exponential was measured slower (PERF.md) and is not kept.
 //
 // No tensor cores: q is six rounded terms per (pixel, pair), and K1 and K2
 // must agree on every gate. A TF32 or bf16 product of a pixel basis (the TPU
@@ -165,7 +167,11 @@ __device__ __forceinline__ unsigned kept_pairs(const QuadPixels& p,
                                                const Lane* lanes, int jb,
                                                int j1) {
   const int j = jb + (threadIdx.x & 31);
+#ifdef GS_NO_SUPPORT_CULL
+  return __ballot_sync(0xffffffffu, j < j1);
+#else
   return __ballot_sync(0xffffffffu, j < j1 && box_hits(p, lanes[j].cull));
+#endif
 }
 
 // The quad's offsets and quadratic forms against one pair, in the order of

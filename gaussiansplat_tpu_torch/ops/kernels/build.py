@@ -45,12 +45,16 @@ class CudaKernel:
     """One CUDA source, its C launcher and a count of launches.
 
     `launches` is a plain integer that the Python wrapper increments each
-    time it launches the kernel (and nowhere else)."""
+    time it launches the kernel (and nowhere else). `defines` are passed to
+    nvcc as `-D` flags (a test build of the same source, e.g. with the
+    raster kernels' support cull off)."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 defines: Sequence[str] = ()):
         self.source = CSRC_DIR / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -68,7 +72,7 @@ class CudaKernel:
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.name.encode())
             h.update(header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def _start_build(self):
@@ -79,7 +83,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp

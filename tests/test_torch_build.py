@@ -55,3 +55,15 @@ def test_build_all_starts_one_build_per_library(tmp_path, monkeypatch):
     assert build.build_all([one, two]) == [one, two]
     assert started == [one]
     assert two.build_log == one.build_log != ""
+
+
+def test_defines_key_the_build():
+    # A build with -D flags (the raster kernels with the support cull off,
+    # tests/test_torch_gpu.py) is another library than the plain build.
+    off = CudaKernel(str(FORWARD.source), FORWARD.symbol, FORWARD.argtypes,
+                     defines=("GS_NO_SUPPORT_CULL",))
+    assert "-DGS_NO_SUPPORT_CULL" in off.flags
+    assert off.library_path() != FORWARD.library_path()
+    again = CudaKernel(str(FORWARD.source), FORWARD.symbol, FORWARD.argtypes,
+                       defines=("GS_NO_SUPPORT_CULL",))
+    assert again.library_path() == off.library_path()

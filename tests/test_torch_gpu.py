@@ -29,6 +29,7 @@ from gaussiansplat_tpu_torch.ops.binning import (
     expand_compacted,
 )
 from gaussiansplat_tpu_torch.ops.camera import look_at
+from gaussiansplat_tpu_torch.ops.kernels import backward, forward
 from gaussiansplat_tpu_torch.ops.kernels.backward import (
     BACKWARD,
     rasterize_backward_cuda,
@@ -310,3 +311,50 @@ def test_raster_layouts_match_plain(cuda, tile_size, chunk_size, strip):
         _assert_rows_close(got[:n, row], want[:n, row], f"row {row}")
     assert not got[:n, 11:].any()
     assert float(got[:n, :6].abs().max()) > 0
+
+
+@pytest.mark.parametrize("tile_size,chunk_size", [(32, 128), (16, 8), (8, 128)],
+                         ids=["ts32_cs128", "ts16_cs8", "ts8_cs128"])
+def test_support_cull_is_exact(cuda, monkeypatch, tile_size, chunk_size):
+    """Opacities spread from alpha_min to 1, so that the support extent of
+    csrc/raster_common.cuh is cut by the alpha gate (2 ln(opacity /
+    alpha_min) < sigma^2) for about a third of the pairs and by sigma for
+    the rest: K1 and K2 give the same bits as a build with the cull off
+    (GS_NO_SUPPORT_CULL), and stay within their budgets against the plain
+    versions."""
+    cfg = RasterConfig(tile_size=tile_size, chunk_size=chunk_size)
+    model, cam = _scene(cuda, 4096, 256, 192, opacity=0.99, fx=880.0)
+    g = torch.Generator().manual_seed(tile_size + chunk_size)
+    op = cfg.alpha_min + (1.0 - cfg.alpha_min) * torch.rand(
+        model.capacity, generator=g, dtype=torch.float64) * 0.999
+    with torch.no_grad():
+        model.logit_opacities.copy_(torch.log(op / (1.0 - op)).float())
+        proj = _project(model, cam, cfg)
+        b = bin_gaussians(proj, cam.width, cam.height, cfg, impl="cuda")
+        sp = b.gather_payload(make_payload(proj))
+        args = (sp, b.tile_starts, cam.width, cam.height, cfg)
+        fwd = rasterize_forward_cuda(*args)
+        cot = torch.randn(fwd.shape, generator=g).to(cuda)
+        cot[:, 4:] = 0.0
+        bargs = (sp, b.tile_starts, cot, fwd, cam.width, cam.height, cfg)
+        grad = rasterize_backward_cuda(*bargs)
+        want_fwd = rasterize_forward_torch(*args)
+        want = rasterize_backward_torch(*bargs)
+        for module, name in ((forward, "FORWARD"), (backward, "BACKWARD")):
+            k = getattr(module, name)
+            monkeypatch.setattr(module, name, type(k)(
+                str(k.source), k.symbol, k.argtypes,
+                defines=("GS_NO_SUPPORT_CULL",)))
+        all_fwd = rasterize_forward_cuda(*args)
+        all_grad = rasterize_backward_cuda(*bargs)
+        torch.cuda.synchronize()
+    n = int(b.num_pairs)
+    assert n > 0
+    assert torch.equal(fwd.view(torch.int32), all_fwd.view(torch.int32))
+    assert torch.equal(grad[:n].view(torch.int32), all_grad[:n].view(torch.int32))
+    f, wf = fwd.cpu().numpy(), want_fwd.cpu().numpy()
+    for row in (0, 1, 2, 4):
+        assert_images_close(f[:, row], wf[:, row], atol=2e-4)
+    np.testing.assert_array_equal(f[:, 6], wf[:, 6])
+    for row in range(11):
+        _assert_rows_close(grad[:n, row], want[:n, row], f"row {row}")

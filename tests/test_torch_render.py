@@ -170,8 +170,7 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "compare_forward_builds.py",
-                                         ROOT / "raster_steps.py"]
+                                         ROOT / "compare_forward_builds.py"]
     assert len(files) > 15
     for f in files:
         bad = {"jax", "jaxlib", "flax", "gaussiansplat_tpu"} & set(
