@@ -16,8 +16,12 @@
    payload, K1's block and a seeded random cotangent, within a budget
    relative to each gradient row's largest entry; K3 (segment reduce) on
    K2's rows in pre-sort order, within 1e-5 of each channel's largest
-   entry. K2 and K3 must give the same bits on two launches. Times by CUDA
-   events, with the plain versions' times and K3's `index_add_` yardstick.
+   entry and bit for bit as the plain twin of its order. K2 and K3 must
+   give the same bits on two launches. Times by CUDA events, with the plain
+   versions' times and K3's `index_add_` yardstick. Then a skewed scene:
+   the 1M scene with 1% of its gaussians at scales in (0.05, 0.4), up to
+   max_tiles_per_gaussian pairs each: K4 integer-equal (overflow 0), K3 on
+   seeded random rows, with the pair count and segment lengths printed.
    K1's and K2's bounds count this run's raster work with plain PyTorch on
    the card (`raster_work`: composited pairs, the (pixel, pair)s inside
    each pair's support extent, the live (pixel, pair)s) and charge the
@@ -66,6 +70,8 @@ import torch
 # one warp-wide load per clock per SM, a broadcast 16-byte load included.
 SMS, CLOCK = 132, 1.98e9
 PEAK_BYTES_PER_S = 3.35e12
+# How long `cuda_ms` holds the card while the host enqueues the timed calls.
+HOLD_MS = 5.0
 RATES = {"instruction issue": 128 * SMS * CLOCK,
          "special-function units": 16 * SMS * CLOCK,
          "shared-memory loads": 32 * SMS * CLOCK,
@@ -117,6 +123,8 @@ K2_DESIGN = {"tested": dict(issue=23, lds=4),
 K2_BULK_ATOL, K2_BULK_FRAC, K2_ATOL = 1e-4, 1e-3, 1e-2
 
 WIDTH, HEIGHT, N_GAUSSIANS, FX = 1920, 1080, 1_000_000, 1600.0
+# Per-axis scales of the skewed scene's large 1% (`skewed_scene`).
+SKEWED_SCALES = (0.05, 0.4)
 
 
 def bench_scene(n: int, device, seed: int = 0):
@@ -140,12 +148,16 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls."""
+    """Mean device time of fn() over `reps` back-to-back calls. The card
+    is held by a sleep kernel (HOLD_MS) while the host enqueues the calls,
+    so that a kernel shorter than its wrapper's host time (K4: ~0.02 ms)
+    is timed back to back, not at the host's enqueue rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(HOLD_MS * 1e-3 * CLOCK))
     start.record()
     for _ in range(reps):
         fn()
@@ -269,13 +281,18 @@ def project(model, cam, cfg):
                              sh_degree=3, alive=model.alive)
 
 
-def check_expand(model, cam, cfg, packed_expected: bool, card: str):
-    """K4 against its plain version on one scene; returns its record."""
+def check_expand(model, cam, cfg, packed_expected: bool, label: str,
+                 card: str):
+    """K4 against its plain version on one scene (integer-equal over the
+    whole capacity, overflow 0); returns its record and the compacted
+    rects."""
     from gaussiansplat_tpu_torch.ops.binning import compact_rects, expand_compacted
 
     c = compact_rects(project(model, cam, cfg), WIDTH, HEIGHT, cfg)
     if c.packed_keys != packed_expected:
         raise AssertionError(f"expected packed_keys={packed_expected}")
+    if int(c.overflow) != 0:
+        raise AssertionError(f"K4 {label}: overflow {int(c.overflow)}")
     got = expand_compacted(c, "cuda")
     want = expand_compacted(c, "torch")
     torch.cuda.synchronize()
@@ -291,11 +308,26 @@ def check_expand(model, cam, cfg, packed_expected: bool, card: str):
     nbytes = c.capacity * 4 * len(got) + 3 * n * 4 + 4
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     regime = "packed keys" if c.packed_keys else "separate streams"
-    print(f"K4 expand {WIDTH}x{HEIGHT} n={n} ({regime}, capacity "
-          f"{c.capacity}, num_pairs {int(c.num_pairs)}): equal over the whole "
-          f"capacity; {ms:.4f} ms (CUDA events), plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes) | {card}")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    lens = segment_lengths(c)
+    print(f"K4 expand {label} {WIDTH}x{HEIGHT} n={n} ({regime}, capacity "
+          f"{c.capacity}, num_pairs {int(c.num_pairs)}, overflow "
+          f"{int(c.overflow)}; pairs per gaussian with pairs: median "
+          f"{lens['median']}, p99 {lens['p99']}, max {lens['max']}): equal "
+          f"over the whole capacity; {ms:.4f} ms (CUDA events), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes) | {card}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                num_pairs=int(c.num_pairs), lens=lens), c
+
+
+def segment_lengths(c) -> dict:
+    """Median, p99 and max of the pair counts of the gaussians with pairs
+    (the segment lengths K3 sums)."""
+    seg = torch.cat([c.off_c, c.num_pairs[None]]).to(torch.int64)
+    lens = (seg[1:] - seg[:-1]).float()
+    lens = lens[lens > 0]
+    q = torch.quantile(lens, torch.tensor([0.5, 0.99], device=lens.device))
+    return dict(median=float(q[0]), p99=float(q[1]), max=int(lens.max()),
+                count=int(lens.numel()))
 
 
 def check_forward(model, cam, cfg, card: str):
@@ -415,29 +447,35 @@ def check_backward(model, cam, cfg, work: dict, card: str):
                 bound_by=bound_by), b, dsorted
 
 
-def check_segreduce(b, dsorted, card: str):
-    """K3 against its plain version on K2's rows in pre-sort order."""
+def check_segreduce(rows, seg, n: int, label: str, card: str):
+    """K3 against its plain version on pre-sort rows (rows past seg[-1]
+    zero): within 1e-5 of each channel's largest entry, the same bits on
+    two launches and the same bits as the plain twin of its order."""
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
+        long_segment_pieces,
         segment_reduce_pairs_cuda,
+        segment_reduce_pairs_split,
         segment_reduce_pairs_torch,
     )
 
-    n = b.depth_order.shape[0]
-    num_pairs = int(b.num_pairs)
-    rows = torch.empty_like(dsorted).index_copy_(0, b.sorted_pos.long(), dsorted)
-    rows[num_pairs:] = 0.0
-    seg = b.seg_offsets
+    num_pairs = int(seg[-1])
     got = segment_reduce_pairs_cuda(rows, seg, n)
     again = segment_reduce_pairs_cuda(rows, seg, n)
     want = segment_reduce_pairs_torch(rows, seg, n)
+    twin = segment_reduce_pairs_split(rows, seg, n)
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("K3 gave different bits on two launches")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"K3 {label} gave different bits on two launches")
+    if not torch.equal(got.view(torch.int32), twin.view(torch.int32)):
+        raise AssertionError(f"K3 {label} differs from the plain twin of its "
+                             "order")
     scale = want.abs().amax(0).clamp(min=1e-30)
     rel = float(((got - want).abs() / scale).max())
     err = float((got - want).abs().max())
     if rel > 1e-5:
-        raise AssertionError(f"K3: max |diff| {rel:.3e} of the channel's largest entry")
+        raise AssertionError(f"K3 {label}: max |diff| {rel:.3e} of the "
+                             "channel's largest entry")
+    split = int(long_segment_pieces(seg)[0].numel())
     # Yardstick only: one index_add_ over each row's rank (atomic on the
     # card); the port never calls it there.
     p = rows.shape[0]
@@ -450,13 +488,56 @@ def check_segreduce(b, dsorted, card: str):
     library_ms = cuda_ms(lambda: out.index_add_(0, rank, rows), reps=20, warmup=3)
     nbytes = num_pairs * 64 + n * 64 + (n + 1) * 4
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f"K3 segment reduce n={n} ({num_pairs} pairs): bit-equal on two "
-          f"launches, max|diff| {err:.3e} ({rel:.3e} of the channel's largest "
-          f"entry); {ms:.4f} ms (CUDA events), plain {plain_ms:.3f} ms, "
-          f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes) "
-          f"| {card}")
+    print(f"K3 segment reduce {label} n={n} ({num_pairs} pairs, {split} "
+          f"segments split): bit-equal on two launches and to the plain twin "
+          f"of its order, max|diff| {err:.3e} ({rel:.3e} of the channel's "
+          f"largest entry); {ms:.4f} ms (CUDA events), plain {plain_ms:.3f} "
+          f"ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes) | {card}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=library_ms)
+                library_ms=library_ms, split=split)
+
+
+def presort_rows(b, dsorted):
+    """K2's rows in pre-sort order (each rank's pairs contiguous), the rows
+    past num_pairs zero: what the gather's backward hands K3."""
+    rows = torch.empty_like(dsorted).index_copy_(0, b.sorted_pos.long(),
+                                                 dsorted)
+    rows[int(b.num_pairs):] = 0.0
+    return rows
+
+
+def skewed_scene(n: int, device, seed: int = 0):
+    """The benchmark scene with 1% of its gaussians (chosen from the seed)
+    given scales uniform in SKEWED_SCALES on each axis: backgrounds and
+    skies, up to max_tiles_per_gaussian tiles each at 1080p."""
+    model = bench_scene(n, device, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    idx = torch.randperm(n, generator=g)[: n // 100]
+    lo, hi = (math.log(s) for s in SKEWED_SCALES)
+    scales = lo + (hi - lo) * torch.rand((idx.numel(), 3), generator=g)
+    with torch.no_grad():
+        model.log_scales[idx.to(device)] = scales.to(device)
+    return model
+
+
+def check_skewed(cfg, cam, device, card: str):
+    """K4 and K3 on the skewed scene: K4 integer-equal over the whole
+    capacity, K3 on seeded random rows in pre-sort order."""
+    model = skewed_scene(N_GAUSSIANS, device)
+    with torch.no_grad():
+        k4, c = check_expand(model, cam, cfg, True, "skewed", card)
+        if k4["lens"]["max"] < 300:
+            raise AssertionError("skewed scene: longest segment "
+                                 f"{k4['lens']['max']}")
+        gen = torch.Generator(device=device).manual_seed(13)
+        rows = torch.randn((c.capacity, 16), generator=gen, device=device)
+        rows[int(c.num_pairs):] = 0.0
+        seg = torch.cat([c.off_c, c.num_pairs[None]])
+        k3 = check_segreduce(rows, seg, c.off_c.shape[0], "skewed", card)
+    del model, c, rows
+    torch.cuda.empty_cache()
+    return k4, k3
 
 
 def serve(model, cfg, card: str):
@@ -709,15 +790,18 @@ def main() -> int:
                         fy=FX, width=WIDTH, height=HEIGHT, device=device)
     big = bench_scene(3_000_000, device, seed=1)
     with torch.no_grad():
-        check_expand(big, bench_cam, cfg, False, card)
+        check_expand(big, bench_cam, cfg, False, "3M", card)
     del big
     torch.cuda.empty_cache()
+    k4_skewed, k3_skewed = check_skewed(cfg, bench_cam, device, card)
     model = bench_scene(N_GAUSSIANS, device)
     with torch.no_grad():
-        k4 = check_expand(model, bench_cam, cfg, True, card)
+        k4, _ = check_expand(model, bench_cam, cfg, True, "bench", card)
         k1, work = check_forward(model, bench_cam, cfg, card)
         k2, binning, dsorted = check_backward(model, bench_cam, cfg, work, card)
-        k3 = check_segreduce(binning, dsorted, card)
+        k3 = check_segreduce(presort_rows(binning, dsorted),
+                             binning.seg_offsets,
+                             binning.depth_order.shape[0], "bench", card)
     del binning, dsorted
     torch.cuda.empty_cache()
 
@@ -755,7 +839,9 @@ def main() -> int:
          "launches": launches["expand"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "skewed_ms": k4_skewed["ms"],
+         "skewed_bound_ms": k4_skewed["bound_ms"],
+         "skewed_num_pairs": k4_skewed["num_pairs"]},
         {"name": "rasterize_forward", "route": "cuda",
          "source": "gaussiansplat_tpu_torch/csrc/forward.cu",
          "replaces": "gaussiansplat_tpu/ops/pallas/forward.py:262",
@@ -776,7 +862,10 @@ def main() -> int:
          "launches": train_launches["segreduce"], "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes",
-         "library_ms": k3["library_ms"]},
+         "library_ms": k3["library_ms"], "skewed_ms": k3_skewed["ms"],
+         "skewed_bound_ms": k3_skewed["bound_ms"],
+         "skewed_library_ms": k3_skewed["library_ms"],
+         "skewed_max_abs_err": k3_skewed["err"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

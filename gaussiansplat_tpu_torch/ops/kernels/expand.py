@@ -8,11 +8,16 @@ key (tile << rank_bits) | g per slot, the sentinel num_tiles << rank_bits
 past num_pairs. Otherwise two int32 streams: tile (num_tiles past
 num_pairs) and g. Both versions define every slot, so they agree over the
 whole capacity.
+
+The kernel finds owners block by block (csrc/expand.cu): `warp_count_le`
+and `block_owners` below are plain twins of that search, for the CPU tests.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+from typing import Sequence
 
 import torch
 
@@ -21,6 +26,10 @@ from .build import CudaKernel
 I32 = torch.int32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# csrc/expand.cu's launch shape: 256 threads a block, four slots a thread.
+SLOTS_PER_THREAD = 4
+SLOTS_PER_BLOCK = 256 * SLOTS_PER_THREAD
 
 EXPAND = CudaKernel(
     "expand.cu", "gs_expand_pairs",
@@ -77,6 +86,50 @@ def expand_pairs_torch(off_c, rect_c, mask_c, num_pairs, capacity: int,
     return torch.where(valid, tile, torch.full_like(tile, num_tiles)), g
 
 
+def warp_count_le(off: Sequence[int], key: int) -> int:
+    """Plain twin of csrc/expand.cu `warp_count_le`: the number of entries
+    of the non-decreasing `off` that are <= key, found by probing 32 evenly
+    spaced entries of the remaining range a step (one per lane)."""
+    lo, hi = 0, len(off)
+    while lo < hi:
+        span = hi - lo
+        probes = [lo + ((span * (lane + 1)) >> 5) - 1 for lane in range(32)]
+        j = sum(q < lo or off[q] <= key for q in probes)
+        new_lo = lo + ((span * j) >> 5)
+        if j < 32:
+            hi = lo + ((span * (j + 1)) >> 5) - 1
+        lo = new_lo
+    return lo
+
+
+def block_owners(off_c: torch.Tensor, num_pairs: int,
+                 capacity: int) -> torch.Tensor:
+    """Plain twin of csrc/expand.cu's owner search: the (capacity,) int32
+    owner of every slot, as the kernel finds it (the rank stream of the
+    separate regime). A block of SLOTS_PER_BLOCK slots wholly past
+    num_pairs searches nothing (owner n - 1); otherwise g0 is the owner of
+    its first slot by `warp_count_le`, the window is off[g0, g0 +
+    SLOTS_PER_BLOCK), each thread bisects the window for its first slot and
+    steps to the next rank for its later ones. Relies on what compact_rects
+    guarantees: every rank whose offset is below num_pairs owns a slot."""
+    off = [int(x) for x in off_c.tolist()]
+    n = len(off)
+    owners = [n - 1] * capacity
+    for base in range(0, min(num_pairs, capacity), SLOTS_PER_BLOCK):
+        g0 = max(warp_count_le(off, base) - 1, 0)
+        win = off[g0:g0 + SLOTS_PER_BLOCK]
+        for p0 in range(base, base + SLOTS_PER_BLOCK, SLOTS_PER_THREAD):
+            if p0 >= num_pairs:
+                break
+            hi = min(len(win), p0 - base + 1)
+            i = bisect.bisect_right(win, p0, 1, hi) - 1
+            for p in range(p0, min(p0 + SLOTS_PER_THREAD, num_pairs)):
+                while i + 1 < len(win) and win[i + 1] <= p:
+                    i += 1
+                owners[p] = g0 + i
+    return torch.tensor(owners, dtype=I32)
+
+
 def _check_i32(name: str, t: torch.Tensor, shape) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -96,9 +149,9 @@ def expand_pairs_cuda(off_c, rect_c, mask_c, num_pairs, capacity: int,
     for name, t in (("off_c", off_c), ("rect_c", rect_c), ("mask_c", mask_c)):
         _check_i32(name, t, (n,))
     _check_i32("num_pairs", num_pairs, ())
-    if n < 1 or capacity < 1:
-        raise ValueError(f"expand needs n >= 1 and capacity >= 1 (n={n}, "
-                         f"capacity={capacity})")
+    if n < 1 or capacity < 1 or capacity > 2 ** 31 - SLOTS_PER_BLOCK:
+        raise ValueError(f"expand needs n >= 1 and 1 <= capacity <= 2^31 - "
+                         f"{SLOTS_PER_BLOCK} (n={n}, capacity={capacity})")
     out_a = torch.empty((capacity,), dtype=I32, device=off_c.device)
     out_b = out_a if packed else torch.empty_like(out_a)
     sentinel = num_tiles << rank_bits if packed else num_tiles

@@ -5,6 +5,10 @@ Input: the (P, 16) f32 per-pair gradient rows in PRE-SORT order (each depth
 rank's pairs contiguous, rows >= num_pairs zero) and the (N + 1,) int32
 segment offsets (`TileBinning.seg_offsets`, the last one num_pairs).
 Output: (N, 16), row r the sum of rows [seg[r], seg[r+1]).
+
+`segment_reduce_pairs_split` is the plain twin of the kernel's summation
+order (segments longer than LONG_ROWS split into GROUPS pieces), bit for
+bit; `segment_reduce_pairs_torch` is the function.
 """
 
 from __future__ import annotations
@@ -18,13 +22,19 @@ from .build import CudaKernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 NCH = 16
+# csrc/segreduce.cu's partition: 64 thread groups a block (four threads a
+# rank); a segment longer than LONG_ROWS rows is split into one contiguous
+# piece per group.
+GROUPS = 64
+LONG_ROWS = 32
 
 SEGREDUCE = CudaKernel(
     "segreduce.cu", "gs_segment_reduce",
     [_P, _P, _I, _P, _P],   # rows, seg_offsets, n, out, stream
 )
 
-__all__ = ["SEGREDUCE", "segment_reduce_pairs_cuda", "segment_reduce_pairs_torch"]
+__all__ = ["SEGREDUCE", "long_segment_pieces", "segment_reduce_pairs_cuda",
+           "segment_reduce_pairs_split", "segment_reduce_pairs_torch"]
 
 
 def segment_reduce_pairs_torch(rows: torch.Tensor, seg_offsets: torch.Tensor,
@@ -41,6 +51,59 @@ def segment_reduce_pairs_torch(rows: torch.Tensor, seg_offsets: torch.Tensor,
     return out.index_add_(0, torch.clamp(rank, 0, n - 1), rows)
 
 
+def long_segment_pieces(seg_offsets: torch.Tensor):
+    """The segments that K3 splits, and their pieces: the ranks whose
+    segment has more than LONG_ROWS rows, and (L, GROUPS + 1) int64 piece
+    bounds, piece i of a segment [s, s + len) being rows [s + len * i //
+    GROUPS, s + len * (i + 1) // GROUPS)."""
+    seg = seg_offsets.to(torch.int64)
+    start, length = seg[:-1], seg[1:] - seg[:-1]
+    ranks = torch.nonzero(length > LONG_ROWS).flatten()
+    i = torch.arange(GROUPS + 1, device=seg.device)
+    bounds = start[ranks, None] + length[ranks, None] * i // GROUPS
+    return ranks, bounds
+
+
+def _sum_in_order(rows, first, count, steps: int):
+    """Rows [first, first + count) summed in row order from +0, elementwise
+    over any shape of `first`; rows past `count` add +0, which changes no
+    sum (a sum started at +0 is never -0)."""
+    acc = torch.zeros((*first.shape, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    for j in range(steps):
+        row = rows[torch.clamp(first + j, max=rows.shape[0] - 1)]
+        acc = acc + torch.where((j < count)[..., None], row, 0.0)
+    return acc
+
+
+def segment_reduce_pairs_split(rows: torch.Tensor, seg_offsets: torch.Tensor,
+                               n: int) -> torch.Tensor:
+    """Plain twin of K3's summation order, bit for bit: a segment of at
+    most LONG_ROWS rows in row order; a longer one as GROUPS pieces, each
+    in row order, the 8 pieces of a warp added by the kernel's shuffle tree
+    (groups 4, 2, 1 apart) and the 8 warps' sums in warp order."""
+    if rows.shape[0] == 0:
+        return torch.zeros((n, rows.shape[1]), dtype=rows.dtype,
+                           device=rows.device)
+    seg = seg_offsets.to(torch.int64)
+    start, length = seg[:-1], seg[1:] - seg[:-1]
+    short = torch.where(length > LONG_ROWS, 0, length)
+    out = _sum_in_order(rows, start, short, LONG_ROWS)
+    ranks, bounds = long_segment_pieces(seg_offsets)
+    if ranks.numel():
+        plen = bounds[:, 1:] - bounds[:, :-1]
+        part = _sum_in_order(rows, bounds[:, :-1], plen, int(plen.max()))
+        v = part.view(ranks.numel(), GROUPS // 8, 8, rows.shape[1])
+        v = v[:, :, :4] + v[:, :, 4:]
+        v = v[:, :, :2] + v[:, :, 2:]
+        v = v[:, :, 0] + v[:, :, 1]
+        total = v[:, 0]
+        for w in range(1, GROUPS // 8):
+            total = total + v[:, w]
+        out[ranks] = total
+    return out
+
+
 def segment_reduce_pairs_cuda(rows: torch.Tensor, seg_offsets: torch.Tensor,
                               n: int) -> torch.Tensor:
     """Launch K3 on the current stream; returns (n, 16)."""
@@ -50,6 +113,9 @@ def segment_reduce_pairs_cuda(rows: torch.Tensor, seg_offsets: torch.Tensor,
                              f"({name} is on {t.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned (the kernel loads "
+                         "float4 quarters of a row)")
     if rows.dtype != torch.float32 or rows.ndim != 2 or rows.shape[1] != NCH:
         raise ValueError(f"rows must be (P, {NCH}) float32, got "
                          f"{tuple(rows.shape)} {rows.dtype}")

@@ -3,11 +3,15 @@ version of the K4 expansion kernel) is fed the JAX reference's `Projected`
 arrays, so float rounding in projection cannot move a tile boundary, and
 every integer field must equal JAX `bin_gaussians` up to `num_pairs`."""
 
+import bisect
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings, strategies as st
 
 from test_torch_common import np_, port_projected
 from test_binning_fallbacks import _fake_proj
@@ -19,7 +23,16 @@ from gaussiansplat_tpu.ops.binning import bin_gaussians as j_bin
 from gaussiansplat_tpu.ops.projection import project_gaussians as j_project
 from gaussiansplat_tpu_torch.config import RasterConfig
 from gaussiansplat_tpu_torch.ops.binning import bin_gaussians, compact_rects
-from gaussiansplat_tpu_torch.ops.kernels.expand import _kth_set_bit, popcount
+from gaussiansplat_tpu_torch.ops.kernels.build import CSRC_DIR
+from gaussiansplat_tpu_torch.ops.kernels.expand import (
+    SLOTS_PER_BLOCK,
+    SLOTS_PER_THREAD,
+    _kth_set_bit,
+    block_owners,
+    expand_pairs_torch,
+    popcount,
+    warp_count_le,
+)
 
 FULL = ("depth_order", "tile_starts", "seg_offsets", "num_pairs", "overflow")
 PAIRS = ("sorted_ranks", "sorted_tiles", "sorted_pos")
@@ -136,3 +149,70 @@ def test_bit_helpers():
     for x, kk, s in zip(m[:512], k[:512], sel[:512]):
         bits = [b for b in range(32) if (int(x) >> b) & 1]
         assert s == (bits[kk] if kk < len(bits) else 0)
+
+
+@settings(max_examples=300, deadline=None, derandomize=True, database=None)
+@given(st.lists(st.integers(0, 3000), max_size=2500), st.integers(-1, 3001))
+def test_warp_count_le_matches_bisect(values, key):
+    """The 32-way search of csrc/expand.cu (its plain twin) counts the
+    entries <= key of any non-decreasing array, duplicates included."""
+    off = sorted(values)
+    assert warp_count_le(off, key) == bisect.bisect_right(off, key)
+
+
+@st.composite
+def _compacted_offsets(draw):
+    """Offsets as compact_rects makes them: ranks with 1..1500 pairs, or
+    long runs of ranks with 1-3 pairs each (a block's 1024 slots then span
+    up to its whole window of 1024 ranks), then empty ranks; clipped to a
+    capacity that may cut the pairs (overflow) or exceed them by less than
+    a block."""
+    if draw(st.booleans()):
+        counts = [draw(st.integers(1, 3))] * draw(st.integers(0, 3000))
+        for _ in range(draw(st.integers(0, 8)) if counts else 0):
+            counts[draw(st.integers(0, len(counts) - 1))] = draw(
+                st.integers(1, 1500))
+    else:
+        counts = draw(st.lists(st.one_of(st.integers(1, 4),
+                                         st.integers(1, 40),
+                                         st.integers(1, 1500)),
+                               min_size=0, max_size=300))
+    counts += [0] * draw(st.integers(0 if counts else 1, 40))
+    total = sum(counts)
+    capacity = draw(st.one_of(st.integers(1, max(total, 1)),
+                              st.integers(total + 1, total + 1100)))
+    off = np.minimum(np.cumsum([0] + counts[:-1]), capacity)
+    return off.astype(np.int32), min(total, capacity), capacity
+
+
+def _ones(ranks, empty, capacity):
+    """`ranks` ranks of one pair each, then `empty` empty ones."""
+    off = np.minimum(np.minimum(np.arange(ranks + empty), ranks), capacity)
+    return off.astype(np.int32), min(ranks, capacity), capacity
+
+
+@settings(max_examples=150, deadline=None, derandomize=True, database=None)
+@given(_compacted_offsets())
+@example(_ones(2600, 5, 2603))     # windows used to their last rank
+@example(_ones(2600, 5, 2048))     # overflow at a block edge
+def test_block_owners_match_plain(case):
+    """The owner of every slot as csrc/expand.cu finds it (one search per
+    block of SLOTS_PER_BLOCK slots, a window of as many ranks, a bisection
+    per SLOTS_PER_THREAD slots) equals the rank stream of the plain
+    version over the whole capacity: past num_pairs that is n - 1, since
+    every offset is clipped to num_pairs."""
+    off, num_pairs, capacity = case
+    n = off.shape[0]
+    off_c = torch.as_tensor(off)
+    zeros = torch.zeros(n, dtype=torch.int32)
+    _, want = expand_pairs_torch(off_c, zeros, zeros, torch.tensor(num_pairs),
+                                 capacity, 8, 64, 10, (4, 4, 4), False)
+    assert torch.equal(block_owners(off_c, num_pairs, capacity), want)
+    assert bool((want[num_pairs:] == n - 1).all())
+
+
+def test_expand_launch_shape_matches_the_kernel():
+    src = (CSRC_DIR / "expand.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    per = int(re.search(r"kSlotsPerThread = (\d+);", src).group(1))
+    assert (per, threads * per) == (SLOTS_PER_THREAD, SLOTS_PER_BLOCK)

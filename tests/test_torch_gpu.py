@@ -12,7 +12,9 @@ random cotangent: rows 0-10 scaled by each row's largest magnitude, all but
 rewinds transmittance per pixel and sums in another order, ~1e-6; a
 knife-edge alpha gate can flip where exp rounds differently). K3 (segment reduce)
 within 1e-5 of each channel's largest magnitude. Both kernels must give the
-same bits on two launches.
+same bits on two launches. K4 and K3 are also held at the edges of their
+designs on synthetic inputs: K4 integer-equal to its plain version, K3
+bit-equal to the plain twin of its summation order.
 """
 
 import numpy as np
@@ -35,15 +37,23 @@ from gaussiansplat_tpu_torch.ops.kernels.backward import (
     rasterize_backward_cuda,
     rasterize_backward_torch,
 )
-from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
+from gaussiansplat_tpu_torch.ops.kernels.expand import (
+    EXPAND,
+    SLOTS_PER_BLOCK,
+    expand_pairs_cuda,
+    expand_pairs_torch,
+)
 from gaussiansplat_tpu_torch.ops.kernels.forward import (
     FORWARD,
     rasterize_forward_cuda,
     rasterize_forward_torch,
 )
 from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
+    GROUPS,
+    LONG_ROWS,
     SEGREDUCE,
     segment_reduce_pairs_cuda,
+    segment_reduce_pairs_split,
     segment_reduce_pairs_torch,
 )
 from gaussiansplat_tpu_torch.ops.projection import make_payload, project_gaussians
@@ -94,6 +104,143 @@ def test_expand_matches_plain(cuda, n, width, height):
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _compacted(device, counts, masks, rects, capacity):
+    """K4's inputs as compact_rects lays them out, from per-rank pair
+    counts (0 for the empty tail), survivor masks and packed rects on a
+    64 x 64 tile grid (7 bits for each of xmin, ymin, tw, th)."""
+    counts = np.asarray(counts, np.int64)
+    off = np.minimum(np.cumsum(counts) - counts, capacity)
+    as_i32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+    return (as_i32(off), as_i32(rects), as_i32(masks),
+            torch.tensor(min(int(counts.sum()), capacity), dtype=torch.int32,
+                         device=device))
+
+
+def _expand_case(name, seed=0):
+    """(counts, masks, rects, capacity, packed) of one edge case."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    tw, th = rng.integers(1, 6, n), rng.integers(1, 6, n)
+    masks = np.zeros(n, np.int64)
+    small = tw * th <= 32
+    masks[small] = (rng.integers(0, 2 ** 32, small.sum())
+                    & ((1 << (tw * th)[small]) - 1))
+    if name == "mask_bit31":
+        # 8 x 4 rects whose masks keep tile 31: bit 31 is the int32 sign.
+        tw[:50], th[:50] = 8, 4
+        masks[:50] = rng.integers(0, 2 ** 31, 50) | (1 << 31)
+        masks[0], masks[1] = 1 << 31, 2 ** 32 - 1
+    counts = np.where(masks != 0, [bin(int(m)).count("1") for m in masks],
+                      np.minimum(tw * th, 1024))
+    if name == "owner_over_a_block":
+        tw[7], th[7], masks[7] = 60, 60, 0
+        counts[7] = 3000          # more slots than a block of 1024
+    empty = {"no_pairs": n, "one_rank": 0}.get(name, 40)
+    if name == "one_rank":
+        counts, masks, tw, th = counts[:1], masks[:1], tw[:1], th[:1]
+        counts[0], masks[0], tw[0], th[0] = 37, 0, 37, 1
+    counts[len(counts) - empty:] = 0
+    xmin = rng.integers(0, 64 - tw + 1)
+    ymin = rng.integers(0, 64 - th + 1)
+    rects = np.where(counts > 0, (((xmin << 7 | ymin) << 7 | tw) << 7) | th, 0)
+    masks = np.where(counts > 0, masks, 0)
+    total = int(counts.sum())
+    # Odd: a multiple of neither the block nor the 4-slot store.
+    capacity = {"no_pairs": 3 * SLOTS_PER_BLOCK + 5,
+                "overflow": total - 777}.get(name, total + SLOTS_PER_BLOCK) | 1
+    return counts, masks, rects, capacity, name != "separate_streams"
+
+
+@pytest.mark.parametrize("name", ["no_pairs", "overflow", "one_rank",
+                                  "owner_over_a_block", "mask_bit31",
+                                  "separate_streams", "ragged_capacity"])
+def test_expand_edges_match_plain(cuda, name):
+    """K4 integer-equal to its plain version over the whole capacity at the
+    edges of its design: num_pairs = 0 (every block only stores); overflow
+    (num_pairs = capacity, the tail ranks' offsets clipped); n = 1; one
+    rank owning more slots than a block of SLOTS_PER_BLOCK; survivor masks
+    with bit 31 set (the int32 sign); the separate-streams regime; and, in
+    every case, a capacity that is a multiple of neither the block nor the
+    4-slot store."""
+    counts, masks, rects, capacity, packed = _expand_case(name)
+    assert capacity % SLOTS_PER_BLOCK and capacity % 4
+    off, rect, mask, num_pairs = _compacted(cuda, counts, masks, rects,
+                                            capacity)
+    n = off.shape[0]
+    rank_bits = max(int(n - 1).bit_length(), 1)
+    args = (off, rect, mask, num_pairs, capacity, 64, 64 * 64, rank_bits,
+            (7, 7, 7), packed)
+    before = EXPAND.launches
+    got = expand_pairs_cuda(*args)
+    want = expand_pairs_torch(*args)
+    torch.cuda.synchronize()
+    assert EXPAND.launches == before + 1
+    if name == "overflow":
+        assert int(num_pairs) == capacity
+    if name == "no_pairs":
+        assert int(num_pairs) == 0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _segment_case(name, seed=0):
+    """(segment lengths, zero rows after the last segment) of one case."""
+    rng = np.random.default_rng(seed)
+    if name == "empty_segments":
+        lens = rng.integers(0, 3, 500) * (rng.random(500) < 0.5)
+        return lens, 9
+    if name == "one_of_1024":
+        return np.array([3, 1024, 2]), 0
+    if name == "long_at_every_boundary":
+        # Long ranks at the first and last rank of blocks and warps, several
+        # in one block (the partials' double buffer), of lengths around the
+        # threshold and the piece count (pieces of 0, 1 and 2 rows).
+        lens = rng.integers(0, 6, 4 * GROUPS + 13)
+        long_lens = [LONG_ROWS + 1, GROUPS - 1, GROUPS, GROUPS + 1,
+                     2 * GROUPS - 1, 2 * GROUPS + 1, 1000, LONG_ROWS]
+        at = [0, 7, 8, 15, 63, 64, 65, 71, 72, 127, 128, 129, 191, 255, 256,
+              4 * GROUPS + 12]
+        for i, r in enumerate(at):
+            lens[r] = long_lens[i % len(long_lens)]
+        return lens, 0
+    if name == "ragged_n":
+        return rng.integers(0, 9, 3 * GROUPS + 5), 3
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["empty_segments", "one_of_1024",
+                                  "long_at_every_boundary", "ragged_n"])
+def test_segment_reduce_edges(cuda, name):
+    """K3 at the edges of its design: empty segments (zero rows), one
+    segment of 1024 rows, long segments at every block and warp boundary
+    and of lengths that give pieces of 0, 1 and 2 rows, n a multiple of
+    neither the warp's 8 ranks nor the block's 64, and P = num_pairs exactly
+    (no row past the last segment). Bit-equal to the plain twin of its
+    order, the same bits on two launches, within 1e-5 of each channel's
+    largest entry of the plain version."""
+    lens, tail = _segment_case(name)
+    seg = torch.as_tensor(
+        np.concatenate([[0], np.cumsum(lens)]).astype(np.int32))
+    n, num_pairs = len(lens), int(seg[-1])
+    g = torch.Generator().manual_seed(len(name))
+    rows = torch.randn((num_pairs + tail, 16), generator=g)
+    rows[num_pairs:] = 0.0
+    rows, seg = rows.to(cuda), seg.to(cuda)
+    got = segment_reduce_pairs_cuda(rows, seg, n)
+    again = segment_reduce_pairs_cuda(rows, seg, n)
+    twin = segment_reduce_pairs_split(rows, seg, n)
+    want = segment_reduce_pairs_torch(rows, seg, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+    assert not got[torch.as_tensor(lens == 0, device=cuda)].any()
+    scale = want.abs().amax(0).clamp(min=1e-12)
+    assert float(((got - want).abs() / scale).max()) <= 1e-5
 
 
 @pytest.mark.parametrize("chunk_size,trans_eps", [(128, 1e-4), (8, 1e-4),
@@ -223,6 +370,8 @@ def test_segment_reduce_matches_plain(cuda):
     torch.cuda.synchronize()
     assert SEGREDUCE.launches == before + 2
     assert torch.equal(got, again), "K3 is not deterministic"
+    twin = segment_reduce_pairs_split(rows, b.seg_offsets, n)
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
     scale = want.abs().amax(0).clamp(min=1e-12)
     assert float(((got - want).abs() / scale).max()) <= 1e-5
 

@@ -13,11 +13,14 @@ All within rtol = atol = 1e-6, the bound of tests/test_gather_vjp.py: the
 sums run over the same rows in f32, in another order.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from test_torch_common import np_
 
@@ -30,7 +33,14 @@ from gaussiansplat_tpu.ops.pallas.segreduce import segment_reduce_pairs as j_seg
 from gaussiansplat_tpu.ops.projection import make_payload as j_payload
 from gaussiansplat_tpu.ops.projection import project_gaussians as j_project
 from gaussiansplat_tpu_torch.ops.binning import TileBinning, reduce_pair_grads
-from gaussiansplat_tpu_torch.ops.kernels.segreduce import segment_reduce_pairs_torch
+from gaussiansplat_tpu_torch.ops.kernels.build import CSRC_DIR
+from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
+    GROUPS,
+    LONG_ROWS,
+    long_segment_pieces,
+    segment_reduce_pairs_split,
+    segment_reduce_pairs_torch,
+)
 
 BINNING_FIELDS = ("sorted_ranks", "depth_order", "sorted_tiles", "tile_starts",
                   "num_pairs", "overflow", "sorted_pos", "seg_offsets")
@@ -158,3 +168,67 @@ def test_gather_vjp_masks_tail_garbage():
     x = torch.tensor(payload, requires_grad=True)
     (b.gather_payload(x) * torch.tensor(cot)).sum().backward()
     np.testing.assert_allclose(np_(x.grad), want, rtol=1e-6, atol=1e-6)
+
+
+@st.composite
+def _segments(draw):
+    """Segment lengths around the split threshold and up to
+    max_tiles_per_gaussian, empty ones included, and a row count P that is
+    num_pairs exactly or leaves a zero tail."""
+    lens = draw(st.lists(st.one_of(st.integers(0, 3),
+                                   st.integers(LONG_ROWS - 2, LONG_ROWS + 2),
+                                   st.integers(0, 1024)),
+                         min_size=1, max_size=60))
+    seg = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    tail = draw(st.sampled_from([0, 5]))
+    seed = draw(st.integers(0, 2 ** 16))
+    return seg, tail, seed
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(_segments())
+def test_split_order_matches_plain(case):
+    """K3's summation order (its plain twin) against the plain version:
+    the same bits on every segment of at most LONG_ROWS rows (row order from
+    +0, as `index_add_` on the CPU); empty segments give zero rows. On the
+    split ones, within 1e-5 of each channel's largest sum of magnitudes: a
+    sum in another order moves by up to ~len x 2^-24 of that, whatever the
+    sum itself (hypothesis finds lone segments that cancel to ~1e-3)."""
+    seg, tail, seed = case
+    n = seg.shape[0] - 1
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(int(seg[-1]) + tail, 16)).astype(np.float32)
+    rows[int(seg[-1]):] = 0.0
+    rows_t, seg_t = torch.as_tensor(rows), torch.as_tensor(seg)
+    got = np_(segment_reduce_pairs_split(rows_t, seg_t, n))
+    want = np_(segment_reduce_pairs_torch(rows_t, seg_t, n))
+    lens = np.diff(seg)
+    short = lens <= LONG_ROWS
+    np.testing.assert_array_equal(got[short], want[short])
+    assert not got[lens == 0].any()
+    mags = np_(segment_reduce_pairs_torch(torch.as_tensor(np.abs(rows)),
+                                          seg_t, n))
+    scale = np.maximum(mags.max(0), 1e-30)
+    assert (np.abs(got - want) / scale).max() <= 1e-5
+
+
+def test_long_segment_pieces_partition_each_split_segment():
+    lens = np.array([0, LONG_ROWS, LONG_ROWS + 1, 7, GROUPS, 1000, 1024])
+    seg = torch.as_tensor(
+        np.concatenate([[0], np.cumsum(lens)]).astype(np.int32))
+    ranks, bounds = long_segment_pieces(seg)
+    assert ranks.tolist() == [2, 4, 5, 6]
+    assert bounds.shape == (4, GROUPS + 1)
+    assert torch.equal(bounds[:, 0], seg[ranks].long())
+    assert torch.equal(bounds[:, -1], seg[ranks + 1].long())
+    plen = bounds[:, 1:] - bounds[:, :-1]
+    assert bool((plen >= 0).all())
+    # Balanced: the pieces of a segment differ by at most one row.
+    assert bool((plen.amax(1) - plen.amin(1) <= 1).all())
+
+
+def test_split_shape_matches_the_kernel():
+    src = (CSRC_DIR / "segreduce.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    long_rows = int(re.search(r"kLongRows = (\d+);", src).group(1))
+    assert (threads // 4, long_rows) == (GROUPS, LONG_ROWS)
