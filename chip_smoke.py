@@ -326,8 +326,7 @@ def segment_lengths(c) -> dict:
     lens = (seg[1:] - seg[:-1]).float()
     lens = lens[lens > 0]
     q = torch.quantile(lens, torch.tensor([0.5, 0.99], device=lens.device))
-    return dict(median=float(q[0]), p99=float(q[1]), max=int(lens.max()),
-                count=int(lens.numel()))
+    return dict(median=float(q[0]), p99=float(q[1]), max=int(lens.max()))
 
 
 def check_forward(model, cam, cfg, card: str):
@@ -507,6 +506,15 @@ def presort_rows(b, dsorted):
     return rows
 
 
+def random_presort_rows(c, seed: int = 13):
+    """K3's inputs for compacted rects `c`: seeded random (capacity, 16)
+    rows in pre-sort order, zero past num_pairs, and the segment offsets."""
+    gen = torch.Generator(device=c.off_c.device).manual_seed(seed)
+    rows = torch.randn((c.capacity, 16), generator=gen, device=c.off_c.device)
+    rows[int(c.num_pairs):] = 0.0
+    return rows, torch.cat([c.off_c, c.num_pairs[None]])
+
+
 def skewed_scene(n: int, device, seed: int = 0):
     """The benchmark scene with 1% of its gaussians (chosen from the seed)
     given scales uniform in SKEWED_SCALES on each axis: backgrounds and
@@ -530,10 +538,7 @@ def check_skewed(cfg, cam, device, card: str):
         if k4["lens"]["max"] < 300:
             raise AssertionError("skewed scene: longest segment "
                                  f"{k4['lens']['max']}")
-        gen = torch.Generator(device=device).manual_seed(13)
-        rows = torch.randn((c.capacity, 16), generator=gen, device=device)
-        rows[int(c.num_pairs):] = 0.0
-        seg = torch.cat([c.off_c, c.num_pairs[None]])
+        rows, seg = random_presort_rows(c)
         k3 = check_segreduce(rows, seg, c.off_c.shape[0], "skewed", card)
     del model, c, rows
     torch.cuda.empty_cache()

@@ -129,10 +129,7 @@ def compare_segreduce(ours: dict, other: dict, c, label: str, card: str,
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import LONG_ROWS
 
     n = c.off_c.shape[0]
-    seg = torch.cat([c.off_c, c.num_pairs[None]])
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    rows = torch.randn((c.capacity, 16), generator=gen, device="cuda")
-    rows[int(c.num_pairs):] = 0.0
+    rows, seg = cs.random_presort_rows(c)
     args = (rows, seg, n)
     a = run_build(ours, "segreduce", args)
     o = run_build(other, "segreduce", args)

@@ -112,8 +112,11 @@ def _compacted(device, counts, masks, rects, capacity):
     64 x 64 tile grid (7 bits for each of xmin, ymin, tw, th)."""
     counts = np.asarray(counts, np.int64)
     off = np.minimum(np.cumsum(counts) - counts, capacity)
-    as_i32 = lambda a: torch.as_tensor(  # noqa: E731
-        np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    def as_i32(a):  # the low 32 bits, as the kernel reads them
+        return torch.as_tensor(
+            np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
     return (as_i32(off), as_i32(rects), as_i32(masks),
             torch.tensor(min(int(counts.sum()), capacity), dtype=torch.int32,
                          device=device))
