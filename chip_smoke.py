@@ -36,9 +36,26 @@
    group's gradient finite and non-zero); a profile of one step.
 6. A small scene with the kernels against the plain versions: image,
    transmittance and every gradient.
-The launch counts are zeroed just before the serve and the train phases and
-read just after; every kernel of the phase must have launched (K1-K4 on
-every training step).
+7. Loop: the training loop through its entry points at the full width of
+   the quality configuration. The bundled benchmark scene (150k GT
+   gaussians, SH 3, 800x800, 16 train + 2 test views, 20k init gaussians
+   at capacity 262,144) with GT from the dense oracle (ms per GT view
+   printed); the GT model through `render()` against its oracle image
+   (>= 60 dB); `Trainer.fit` for 800 iterations on a compressed schedule
+   (6 densify passes at 100-600, an opacity reset at 400, evals every 200,
+   checkpoints at 400 and 800): overflow 0 on every logged step, finite
+   loss, rising gaussian count, eval PSNR at 800 above that at 200; then a
+   fresh Trainer resumes from the step-400 checkpoint alone and runs to
+   800 (densify passes at 500 and 600, alive count within 10% of the
+   straight run's). Median step ms, each densify pass's ms, eval ms per
+   view and the phase's peak device memory are printed.
+8. CLI train: `python -m gaussiansplat_tpu_torch train --scene synthetic`
+   as a user runs it (on the card by default) for 200 steps, `--resume`
+   to 300, and `eval` of the exported PLY; the run's files, overflow 0,
+   K1-K4 on every step.
+The launch counts are zeroed just before the serve, the train, the loop
+and the CLI-train phases and read just after; every kernel of the phase must have
+launched (K1-K4 on every training step, K4 and K1 on every eval render).
 
 Every phase raises on failure. The last two lines are one JSON object with
 per-kernel numbers and `{"ok": true, "device": {...}}`. Exits non-zero when
@@ -47,9 +64,11 @@ no CUDA card is present.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -704,6 +723,232 @@ def train(model, cam, cfg, kernels, card: str):
     return times, launches
 
 
+# The loop phase's schedule: the 3DGS schedule compressed to 800 steps.
+LOOP_SCHEDULE = dict(iterations=800, sh_degree=3, sh_increase_every=200,
+                     densify_start=100, densify_every=100, densify_end=600,
+                     densify_target_fraction=0.08, opacity_reset_every=400,
+                     eval_every=200, log_every=100, checkpoint_every=400)
+
+
+def loop(kernels, card: str) -> dict:
+    """The training loop on the quality configuration's scene (see the
+    module docstring, phase 7). Returns the phase's launch counts."""
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.data.benchmark import (
+        benchmark_scene, make_gt_renderer)
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.render import render
+    from gaussiansplat_tpu_torch.train import Trainer, psnr
+    from gaussiansplat_tpu_torch.utils import StageTimer
+
+    device = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = RasterConfig()
+    t0 = time.perf_counter()
+    scene, gt_model = benchmark_scene(
+        n_points=150_000, width=800, height=800, init_points=20_000,
+        capacity=262_144, sh_degree=3, n_train=16, n_test=2,
+        gt_renderer="oracle", cfg=cfg, device=device)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    cam, gt_img = scene.test_views[0]
+    gt_render = make_gt_renderer(gt_model, cfg, 3)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = gt_render(cam)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(again, gt_img):
+        raise AssertionError("the oracle GT of a view is not reproducible")
+    n_views = len(scene.train_views) + len(scene.test_views)
+    print(f"loop scene: 150k GT gaussians, SH 3, 800x800, {n_views} GT views "
+          f"and the init model in {scene_s:.3f} s; one oracle GT view "
+          f"{min(times):.3f} ms (of 2: {times[0]:.3f}, {times[1]:.3f}); init "
+          f"{int(scene.init_model.num_alive)} gaussians at capacity "
+          f"{scene.init_model.capacity} | {card}")
+    black = torch.zeros((3,), device=device)
+    with torch.inference_mode():
+        out = render(gt_model, cam, cfg, sh_degree=3, background=black)
+    gt_psnr = float(psnr(out.image, gt_img))      # psnr() caps MSE at 1e-12
+    d = (out.image - gt_img).abs()
+    print(f"GT model through render() against its oracle image: "
+          f"{gt_psnr:.3f} dB (MSE {float((d * d).mean()):.3e}, max|diff| "
+          f"{float(d.max()):.3e}), overflow {int(out.overflow)}")
+    if not gt_psnr >= 60.0 or int(out.overflow) != 0:
+        raise AssertionError(f"render() vs oracle: {gt_psnr} dB")
+    del gt_model, gt_render, out, again
+
+    tcfg = TrainConfig(**LOOP_SCHEDULE)
+    init_copy = copy.deepcopy(scene.init_model)
+    rows, timer = [], StageTimer()
+    for k in kernels:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpts")
+        t0 = time.perf_counter()
+        model, met = Trainer(raster_cfg=cfg, cfg=tcfg).fit(
+            scene.init_model, scene.train_views,
+            log=lambda it, m: rows.append((it, m)), ckpt_dir=ckpt,
+            eval_views=scene.test_views, timer=timer)
+        fit_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        saved = sorted(os.listdir(ckpt))
+        if saved != ["step_00000400", "step_00000800"]:
+            raise AssertionError(f"checkpoints {saved}")
+        resume_dir = os.path.join(tmp, "resume")
+        os.makedirs(resume_dir)
+        shutil.copytree(os.path.join(ckpt, "step_00000400"),
+                        os.path.join(resume_dir, "step_00000400"))
+        rrows, rtimer = [], StageTimer()
+        rmodel, rmet = Trainer(raster_cfg=cfg, cfg=tcfg).fit(
+            init_copy, scene.train_views,
+            log=lambda it, m: rrows.append((it, m)), ckpt_dir=resume_dir,
+            resume=True, eval_views=scene.test_views, timer=rtimer)
+    peak = torch.cuda.max_memory_allocated()
+
+    train_rows = [(it, m) for it, m in rows if m.get("kind") != "eval"]
+    evals = {it: m for it, m in rows if m.get("kind") == "eval"}
+    for it, m in rows:
+        print(f"loop [step {it}] " + " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in m.items()))
+    dens = [(it, m) for it, m in train_rows if "cloned" in m]
+    if [it for it, _ in dens] != [100, 200, 300, 400, 500, 600]:
+        raise AssertionError(f"densify passes at {[it for it, _ in dens]}")
+    if any(m["overflow"] != 0 for _, m in train_rows):
+        raise AssertionError("overflow on a logged step")
+    if not all(math.isfinite(m["loss"]) for _, m in train_rows):
+        raise AssertionError("non-finite loss")
+    alive = [int(m["num_alive"]) for _, m in train_rows]
+    if alive[0] != 20_000 or not int(model.num_alive) > 20_000:
+        raise AssertionError(f"num_alive {alive} -> {int(model.num_alive)}")
+    if sorted(evals) != [200, 400, 600, 800]:
+        raise AssertionError(f"evals at {sorted(evals)}")
+    if not evals[800]["eval_psnr"] > evals[200]["eval_psnr"]:
+        raise AssertionError("eval PSNR at 800 not above that at 200")
+    for it, m in dens:
+        print(f"densify pass at {it}: cloned {m['cloned']:.0f}, split "
+              f"{m['split']:.0f}, pruned {m['pruned']:.0f}, dropped "
+              f"{m['dropped']:.0f}{' (prune_big on: world and screen size)' if it > 400 else ''}")
+    print(f"num_alive at the logged steps {alive}, after the run "
+          f"{int(model.num_alive)}; one opacity reset (at 400); eval PSNR "
+          + ", ".join(f"{it}: {m['eval_psnr']:.4f} dB" for it, m in
+                      sorted(evals.items())))
+
+    # Launches: K1-K4 on every step, K4 and K1 also on every eval render.
+    steps, renders = tcfg.iterations, len(timer.ms["eval_view"])
+    want = {"expand": steps + renders, "forward": steps + renders,
+            "backward": steps, "segreduce": steps}
+    print(f"launches during the loop: {launches} for {steps} steps and "
+          f"{renders} eval renders")
+    for name, count in want.items():
+        if launches[name] < count:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times, {count} expected")
+
+    # The resumed run: steps 401-800 from the step-400 checkpoint alone.
+    rtrain = [(it, m) for it, m in rrows if m.get("kind") != "eval"]
+    rdens = [it for it, m in rtrain if "cloned" in m]
+    n_r = len(rtimer.ms["step"])
+    if n_r != 400 or rtrain[0][0] != 500 or rdens != [500, 600]:
+        raise AssertionError(f"resume: {n_r} steps, logged from "
+                             f"{rtrain[0][0]}, densify at {rdens}")
+    ra, sa = int(rmodel.num_alive), int(model.num_alive)
+    if not math.isfinite(rmet["loss"]) or abs(ra - sa) > 0.1 * sa:
+        raise AssertionError(f"resume: loss {rmet['loss']}, alive {ra} vs {sa}")
+    print(f"resume from step_00000400 alone: steps 401-800, densify at "
+          f"{rdens}, final loss {rmet['loss']:.6f} (straight "
+          f"{met['loss']:.6f}), num_alive {ra} (straight {sa}), eval PSNR at "
+          f"800 {[m['eval_psnr'] for it, m in rrows if m.get('kind') == 'eval'][-1]:.4f} dB")
+
+    # Device time by kernel of one step, one densify pass and one eval
+    # view on the trained model (~30k gaussians).
+    from gaussiansplat_tpu_torch.train import (
+        init_train_state, make_densify_fn, make_eval_fn, make_train_step)
+
+    state = init_train_state(model, tcfg, float(scene_extent(model)))
+    step = make_train_step(cfg, tcfg)
+    tcam, tgt = scene.train_views[0]
+    profile(lambda: step(state, tcam, tgt, 3), "loop training step", card,
+            top=8)
+    dfn = make_densify_fn(tcfg)
+    profile(lambda: dfn(state, state.extent, True, 120.0), "densify pass",
+            card, top=6)
+    efn = make_eval_fn(cfg, tcfg)
+    profile(lambda: efn(model, cam, gt_img, 3), "eval view", card, top=6)
+
+    step_ms = timer.ms["step"]
+    print(f"loop: fit {fit_s:.3f} s for {steps} steps; step ms median "
+          f"{float(np.median(step_ms)):.3f} (quartiles "
+          f"{float(np.percentile(step_ms, 25)):.3f}-"
+          f"{float(np.percentile(step_ms, 75)):.3f}, host clock to "
+          f"synchronize, densify passes excluded); densify pass ms "
+          + ", ".join(f"{t:.3f}" for t in timer.ms["densify"])
+          + f"; eval ms per view median "
+          f"{float(np.median(timer.ms['eval_view'])):.3f}; peak device "
+          f"memory {peak} B ({peak / 2**30:.3f} GiB) | {card}")
+    return launches
+
+
+def cli_train(kernels, card: str) -> dict:
+    """The loop through its CLI: `train --scene synthetic --sh-degree 1`
+    (the default scene: 1024 GT gaussians, 256x256, 24 + 4 views, oracle
+    GT) for 200 steps on the CLI's default device, `--resume` to 300, then
+    `eval` of the exported PLY. Checks the run's files, overflow 0 and that K1-K4
+    launched on every step. Returns the launch counts."""
+    import contextlib
+    import io
+
+    from gaussiansplat_tpu_torch import cli
+
+    for k in kernels:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "run")
+        # SH degree 1: the synthetic scene's gaussians carry degree 1
+        # (as the reference's CLI tests run it).
+        args = ["train", "--scene", "synthetic", "--sh-degree", "1",
+                "--out", out, "--eval-every", "100"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = cli.main(args + ["--iterations", "200"])
+            rc2 = cli.main(args + ["--iterations", "300", "--resume"])
+        train_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        rows = [json.loads(line)
+                for line in open(os.path.join(out, "metrics.jsonl"))]
+        files = sorted(os.listdir(out))
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpts")))
+        previews = sorted(os.listdir(os.path.join(out, "previews")))
+        with contextlib.redirect_stdout(io.StringIO()) as ev:
+            rc3 = cli.main(["eval", "--scene", "synthetic", "--sh-degree",
+                            "1", "--ply", os.path.join(out, "point_cloud.ply")])
+    if (rc, rc2, rc3) != (0, 0, 0):
+        raise AssertionError(f"CLI exit codes {rc}, {rc2}, {rc3}")
+    result = json.loads(ev.getvalue().strip().splitlines()[-1])
+    train_rows = [r for r in rows if r.get("kind") != "eval"]
+    evals = [(r["step"], r["eval_psnr"]) for r in rows if r.get("kind") == "eval"]
+    if files != ["ckpts", "metrics.jsonl", "point_cloud.ply", "previews"] \
+            or ckpts != ["step_00000200", "step_00000300"] \
+            or [st for st, _ in evals] != [100, 200, 300] or len(previews) != 3:
+        raise AssertionError(f"CLI run: {files} {ckpts} {previews} {evals}")
+    if any(r["overflow"] != 0 for r in train_rows) or not all(
+            math.isfinite(r["loss"]) for r in train_rows):
+        raise AssertionError(f"CLI run rows: {train_rows}")
+    if min(launches.values()) < 300:
+        raise AssertionError(f"CLI run launches {launches} for 300 steps")
+    print(f"CLI train --scene synthetic on the card: 200 steps, then --resume "
+          f"to 300, in {train_s:.3f} s (scene build included); logged steps "
+          f"{[r['step'] for r in train_rows]}; eval PSNR "
+          + ", ".join(f"{st}: {p:.3f} dB" for st, p in evals)
+          + f"; checkpoints {ckpts}; CLI eval of the PLY {result['psnr']:.3f} "
+          f"dB / SSIM {result['ssim']:.4f} on {result['n_views']} views; "
+          f"launches {launches} | {card}")
+    return launches
+
+
 def _load_frame(path: str) -> np.ndarray:
     if os.path.exists(path):
         from PIL import Image
@@ -836,6 +1081,14 @@ def main() -> int:
 
     # 6. small scene against the plain versions
     small_reference_check()
+    torch.cuda.empty_cache()
+
+    # 7. loop: counts zeroed just before Trainer.fit, read just after
+    loop_launches = loop([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    torch.cuda.empty_cache()
+
+    # 8. the loop through the CLI: counts zeroed just before, read after
+    cli_train([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
 
     record = {"kernels": [
         {"name": "expand_pairs", "route": "cuda",
@@ -872,6 +1125,9 @@ def main() -> int:
          "skewed_library_ms": k3_skewed["library_ms"],
          "skewed_max_abs_err": k3_skewed["err"]},
     ]}
+    for k, name in zip(record["kernels"], ("expand", "forward", "backward",
+                                            "segreduce")):
+        k["loop_launches"] = loop_launches[name]
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""INRIA `cameras.json` reader.
+"""INRIA `cameras.json` reader and writer.
 
 Per camera the file holds `position` (camera centre, world), `rotation` (3x3
 camera-to-world, row-major lists), `fx, fy, width, height, img_name, id`. The
@@ -29,3 +29,16 @@ def load_cameras_json(path: str, device="cuda") -> List[Camera]:
         ))
     return cams
 
+
+
+def save_cameras_json(path: str, cameras: List[Camera]) -> None:
+    entries = []
+    for i, c in enumerate(cameras):
+        R = c.R.detach().cpu().numpy()
+        entries.append(dict(
+            id=i, img_name=f"{i:05d}", width=int(c.width), height=int(c.height),
+            position=c.position.detach().cpu().numpy().tolist(),
+            rotation=R.T.tolist(), fx=float(c.fx), fy=float(c.fy),
+        ))
+    with open(path, "w") as f:
+        json.dump(entries, f)

@@ -3,6 +3,7 @@ from .gaussians import (
     empty_model,
     from_arrays,
     from_numpy_params,
+    from_points,
     random_model,
     scene_extent,
 )

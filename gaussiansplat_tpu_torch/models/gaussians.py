@@ -151,6 +151,49 @@ def from_arrays(
     )
 
 
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < max(x, 1):
+        p *= 2
+    return p
+
+
+def from_points(
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: Optional[int] = None,
+    sh_degree: int = 3,
+    init_opacity: float = 0.1,
+    device="cuda",
+) -> GaussianModel:
+    """Initialize from an SfM point cloud, 3DGS-style: isotropic scale from
+    the mean squared distance to the 3 nearest neighbours (numpy, on the
+    host, chunked O(n^2)). The capacity defaults to the next power of two
+    of 4n."""
+    n = points.shape[0]
+    pts = np.asarray(points, np.float32)
+    d2mean = np.empty((n,), np.float32)
+    chunk = 2048
+    for s in range(0, n, chunk):
+        block = pts[s : s + chunk]
+        d2 = ((block[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        d2.partition(3, axis=1)
+        d2mean[s : s + chunk] = np.maximum(d2[:, 1:4].mean(1), 1e-7)
+    scales = np.log(np.sqrt(d2mean))[:, None].repeat(3, axis=1)
+
+    k = num_sh_coeffs(sh_degree)
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    logit_op = np.full((n,), float(np.log(init_opacity / (1 - init_opacity))),
+                       np.float32)
+    sh_dc = rgb_to_sh_dc(torch.as_tensor(np.asarray(colors, np.float32)))
+    sh_dc = sh_dc.numpy()[:, None, :]
+    sh_rest = np.zeros((n, k - 1, 3), np.float32)
+    capacity = capacity or _next_pow2(4 * n)
+    return from_arrays(pts, quats, scales, logit_op, sh_dc, sh_rest, capacity,
+                       device=device)
+
+
 def from_numpy_params(params: Dict[str, np.ndarray], alive: np.ndarray,
                       device="cuda") -> GaussianModel:
     """A model holding exactly the given parameter arrays and alive mask,

@@ -43,6 +43,15 @@ class Camera:
     def tan_half_fov(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return 0.5 * self.width / self.fx, 0.5 * self.height / self.fy
 
+    def resized(self, width: int, height: int) -> "Camera":
+        """The camera of a rescaled image with the same field of view."""
+        sx = width / self.width
+        sy = height / self.height
+        return dataclasses.replace(
+            self, fx=self.fx * sx, fy=self.fy * sy, cx=self.cx * sx,
+            cy=self.cy * sy, width=int(width), height=int(height),
+        )
+
     def to(self, device) -> "Camera":
         mv = lambda x: x.to(device)
         return dataclasses.replace(

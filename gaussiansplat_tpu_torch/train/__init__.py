@@ -1,7 +1,12 @@
 from .loss import l1, photometric_loss, psnr, ssim, ssim_map
 from .trainer import (
     TrainState,
+    Trainer,
+    evaluate,
     init_train_state,
+    make_densify_fn,
+    make_eval_fn,
+    make_opacity_reset_fn,
     make_optimizer,
     make_train_step,
     position_lr_schedule,
@@ -10,8 +15,13 @@ from .trainer import (
 
 __all__ = [
     "TrainState",
+    "Trainer",
+    "evaluate",
     "init_train_state",
     "l1",
+    "make_densify_fn",
+    "make_eval_fn",
+    "make_opacity_reset_fn",
     "make_optimizer",
     "make_train_step",
     "photometric_loss",

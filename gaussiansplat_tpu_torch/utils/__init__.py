@@ -1,1 +1,23 @@
-from .checkpoint import export_ply, import_ply
+from .checkpoint import (
+    export_ply,
+    import_ply,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from .logging import MetricLogger, StageTimer, named_scope, profile_trace
+from .resilience import is_transient, run_resilient
+
+__all__ = [
+    "MetricLogger",
+    "StageTimer",
+    "export_ply",
+    "import_ply",
+    "is_transient",
+    "latest_step",
+    "named_scope",
+    "run_resilient",
+    "profile_trace",
+    "restore_checkpoint",
+    "save_checkpoint",
+]

@@ -510,3 +510,105 @@ def test_support_cull_is_exact(cuda, monkeypatch, tile_size, chunk_size):
     np.testing.assert_array_equal(f[:, 6], wf[:, 6])
     for row in range(11):
         _assert_rows_close(grad[:n, row], want[:n, row], f"row {row}")
+
+
+def _densify_inputs(device, seed=0):
+    """A 96-of-112-slot model with every third slot killed (64 alive, 48
+    free) and statistics whose ranking has ties, on `device`."""
+    from gaussiansplat_tpu_torch.models.densify import DensifyState
+
+    g = torch.Generator().manual_seed(seed)
+    model = random_model(g, 96, sh_degree=3, capacity=112, device="cpu")
+    model.alive[::3] = False
+    grads = torch.where(model.alive, 1e-5 * (torch.arange(112) % 7).float(),
+                        torch.zeros(112))
+    radii = torch.randint(0, 300, (112,), generator=g, dtype=torch.int32)
+    state = DensifyState(grads, model.alive.to(torch.int32), radii)
+    eps = torch.randn((112, 3), generator=g)
+    eps2 = torch.randn((112, 3), generator=g)
+    mv = lambda t: t.to(device)
+    return (model.to(device),
+            DensifyState(*(mv(t) for t in (state.grad2d_sum,
+                                           state.grad2d_count,
+                                           state.max_radii))),
+            mv(eps), mv(eps2))
+
+
+def test_densify_and_prune_cuda_match_cpu(cuda):
+    """Clone, split and prune on CUDA tensors equal the same calls on the
+    CPU with the same draws: masks, counts and alive exactly, clones bit
+    for bit, split samples within 1e-6."""
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.models import densify
+    from gaussiansplat_tpu_torch.models.gaussians import PARAM_NAMES
+
+    cfg = TrainConfig(densify_target_fraction=0.9, densify_scale_thresh=0.05,
+                      prune_radius_frac=0.05)
+    out = []
+    for dev in ("cpu", cuda):
+        model, state, eps, eps2 = _densify_inputs(dev)
+        _, _, info = densify._densify(model, state, cfg, 1.0, eps, eps2)
+        _, pinfo = densify.prune_step(model, state, cfg, 1.0, True,
+                                      max_screen_px=200.0)
+        out.append((model.cpu(), info, pinfo))
+    (a, ia, pa), (b, ib, pb) = out
+    for k in ("cloned", "split", "dropped"):
+        assert ia[k] == ib[k], k
+    assert ia["cloned"] > 0 and ia["split"] > 0 and ia["dropped"] > 0
+    assert torch.equal(ia["touched"], ib["touched"].cpu())
+    assert pa == pb and pa["pruned"] > 0
+    assert torch.equal(a.alive, b.alive)
+    for k in PARAM_NAMES:
+        if k in ("means", "log_scales"):
+            torch.testing.assert_close(getattr(b, k), getattr(a, k), rtol=0,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(getattr(b, k), getattr(a, k)), k
+
+
+def test_render_oracle_full_cuda_matches_cpu(cuda):
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.oracle import render_oracle_full
+
+    cfg = RasterConfig()
+    model, cam = _scene("cpu", 4096, 160, 120, seed=3)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    with torch.no_grad():
+        want = render_oracle_full(_project(model, cam, cfg), 160, 120, cfg, bg)
+        got = render_oracle_full(_project(model.to(cuda), cam.to(cuda), cfg),
+                                 160, 120, cfg, bg.to(cuda))
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, rtol=0, atol=1e-5)
+    assert float(want[1].min()) < 0.5
+
+
+def test_fit_on_the_card_launches_every_kernel(cuda):
+    """20 iterations of Trainer.fit on the card with one densify pass: K1-K4
+    launch on every step, K4 and K1 on every eval render; overflow 0,
+    finite loss, the gaussian count grows."""
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.data import synthetic_scene
+    from gaussiansplat_tpu_torch.train import Trainer
+
+    scene, _ = synthetic_scene(torch.Generator().manual_seed(0),
+                               n_gaussians=512, n_train=6, n_test=2,
+                               width=96, height=80, fx=120.0, device=cuda)
+    cfg = TrainConfig(iterations=20, densify_start=10, densify_every=10,
+                      densify_end=10, densify_target_fraction=0.1,
+                      sh_degree=1, sh_increase_every=5, eval_every=20,
+                      log_every=5)
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    before = [k.launches for k in kernels]
+    rows = []
+    model, met = Trainer(raster_cfg=RasterConfig(), cfg=cfg).fit(
+        scene.init_model, scene.train_views,
+        log=lambda it, m: rows.append((it, m)), eval_views=scene.test_views)
+    torch.cuda.synchronize()
+    counts = [k.launches - b for k, b in zip(kernels, before)]
+    assert counts[0] >= 22 and counts[1] >= 22, counts
+    assert counts[2] >= 20 and counts[3] >= 20, counts
+    train = [m for _, m in rows if m.get("kind") != "eval"]
+    assert all(m["overflow"] == 0 for m in train)
+    assert sum(m.get("cloned", 0) + m.get("split", 0) for m in train) > 0
+    assert int(model.num_alive) > 512 and np.isfinite(met["loss"])
+    assert model.device.type == "cuda"
