@@ -53,9 +53,29 @@
    as a user runs it (on the card by default) for 200 steps, `--resume`
    to 300, and `eval` of the exported PLY; the run's files, overflow 0,
    K1-K4 on every step.
-The launch counts are zeroed just before the serve, the train, the loop
-and the CLI-train phases and read just after; every kernel of the phase must have
-launched (K1-K4 on every training step, K4 and K1 on every eval render).
+9. Giant frames: the 1M bench scene at 7680x4320 with 32 px tiles and at
+   3840x2160 with 16 px tiles (240 x 135 tiles: int64 rects), fx scaled
+   with the width, `pairs_per_gaussian` raised until nothing overflows. K4
+   integer-equal to its plain version over the whole capacity and timed
+   beside its bytes bound; the 4K frame through `render()` against the
+   plain path; the 8K frame through `render()` (overflow 0, finite),
+   request ms and a profile of one request.
+10. 2D splats: 1M screen-space splats (2-10 px, opacity 0.7) at 1920x1080,
+   render and backward through K1-K4 against the plain versions (image
+   budget, gradients within 2e-3), request ms, 20 Adam steps toward a
+   target from a perturbed copy (finite falling loss, K1-K4 every step).
+11. Sharded: this script started as 2 ranks (`--sharded-rank`, gloo) on
+   the one card; the tile-sharded render (tile=2) against `render()`, one
+   step at (data=1, tile=2) and at (data=2, tile=1) against the
+   single-device mean-of-views loss (1e-5 relative) and gradients (2e-3),
+   replicas bit-equal, K1-K4 in every rank, step ms per rank.
+The serve phase also checks native IO: the CLI read the exported 1M PLY
+with the native parser; both parsers' times are printed.
+The launch counts are zeroed just before the serve, the train, the loop,
+the CLI-train, each giant frame's requests and the 2D steps (and in each
+rank around its render and steps) and read just after; every kernel of
+the phase must have launched (K1-K4 on every training step, K4 and K1 on
+every render).
 
 Every phase raises on failure. The last two lines are one JSON object with
 per-kernel numbers and `{"ok": true, "device": {...}}`. Exits non-zero when
@@ -301,13 +321,13 @@ def project(model, cam, cfg):
 
 
 def check_expand(model, cam, cfg, packed_expected: bool, label: str,
-                 card: str):
+                 card: str, width: int = WIDTH, height: int = HEIGHT):
     """K4 against its plain version on one scene (integer-equal over the
     whole capacity, overflow 0); returns its record and the compacted
     rects."""
     from gaussiansplat_tpu_torch.ops.binning import compact_rects, expand_compacted
 
-    c = compact_rects(project(model, cam, cfg), WIDTH, HEIGHT, cfg)
+    c = compact_rects(project(model, cam, cfg), width, height, cfg)
     if c.packed_keys != packed_expected:
         raise AssertionError(f"expected packed_keys={packed_expected}")
     if int(c.overflow) != 0:
@@ -324,11 +344,14 @@ def check_expand(model, cam, cfg, packed_expected: bool, label: str,
     ms = cuda_ms(lambda: expand_compacted(c, "cuda"), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: expand_compacted(c, "torch"), reps=3)
     n = c.off_c.shape[0]
-    nbytes = c.capacity * 4 * len(got) + 3 * n * 4 + 4
+    # Outputs written, and the offsets, rects (4 or 8 B) and masks read.
+    nbytes = c.capacity * 4 * len(got) + n * (8 + c.rect_c.element_size()) + 4
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     regime = "packed keys" if c.packed_keys else "separate streams"
     lens = segment_lengths(c)
-    print(f"K4 expand {label} {WIDTH}x{HEIGHT} n={n} ({regime}, capacity "
+    print(f"K4 expand {label} {width}x{height} n={n} ({regime}, "
+          f"{c.rect_c.dtype} rects, {c.tiles_x}x{c.num_tiles // c.tiles_x} "
+          f"tiles of {cfg.tile_size} px, capacity "
           f"{c.capacity}, num_pairs {int(c.num_pairs)}, overflow "
           f"{int(c.overflow)}; pairs per gaussian with pairs: median "
           f"{lens['median']}, p99 {lens['p99']}, max {lens['max']}): equal "
@@ -610,6 +633,7 @@ def serve(model, cfg, card: str):
         cli_s = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"CLI render exited {rc}")
+        native = native_io(ply, model.capacity, card)
         # The CLI's orbit angles 0 and pi are requests 1 and 5 above.
         for i, req in ((0, 0), (1, 4)):
             frame = _load_frame(os.path.join(outdir, f"frame_{i:04d}.png"))
@@ -618,7 +642,40 @@ def serve(model, cfg, card: str):
                 raise AssertionError(f"CLI frame {i} differs from request {req + 1}")
     print(f"CLI: 2 frames of {WIDTH}x{HEIGHT} in {cli_s:.2f} s (PLY import "
           "included), equal to the served frames")
-    return times
+    return times, native
+
+
+def native_io(ply: str, n: int, card: str) -> dict:
+    """Native IO (in the serve phase): the CLI render just read `ply` with the native parser
+    (data/native_loader.py, built with g++ into _build/); the parse of the
+    n-gaussian PLY timed with it and with the numpy fallback, the arrays
+    equal."""
+    from gaussiansplat_tpu_torch.data import ply as ply_mod
+
+    if ply_mod.LAST_PARSER != "native":
+        raise AssertionError(f"the CLI read the PLY with {ply_mod.LAST_PARSER}")
+    times = {}
+    for parser in ("native", "numpy"):
+        saved = ply_mod._NATIVE
+        if parser == "numpy":
+            ply_mod._NATIVE = False
+        try:
+            t0 = time.perf_counter()
+            arrays = ply_mod.load_gaussian_ply(ply)
+            times[parser] = (time.perf_counter() - t0) * 1e3
+        finally:
+            ply_mod._NATIVE = saved
+        if ply_mod.LAST_PARSER != parser:
+            raise AssertionError(f"{parser} parse used {ply_mod.LAST_PARSER}")
+        if parser == "native":
+            first = arrays
+    if not all(np.array_equal(a, b) for a, b in zip(first, arrays)):
+        raise AssertionError("native and numpy PLY parses differ")
+    mb = os.path.getsize(ply) / 2 ** 20
+    print(f"native IO: the CLI read the PLY with the native parser; parse of "
+          f"{n} gaussians ({mb:.1f} MiB) {times['native']:.3f} ms native, "
+          f"{times['numpy']:.3f} ms numpy, equal arrays | {card}")
+    return dict(parse_ms=times, mib=mb)
 
 
 def profile(fn, what: str, card: str, top: int = 12) -> None:
@@ -1001,6 +1058,418 @@ def small_reference_check():
           f"plain versions within {worst:.3e} of each one's largest entry")
 
 
+# Giant frames: (width, height, tile size). Both tile grids are 240 x 135
+# tiles, whose rect needs 32 bits: K4's int64 instantiation.
+GIANT_FRAMES = ((7680, 4320, 32), (3840, 2160, 16))
+
+
+def sized_cfg(proj, width: int, height: int, tile_size: int = 32):
+    """A RasterConfig at `tile_size` whose pair capacity holds every pair of
+    this frame: the default pairs_per_gaussian, raised (in steps of 4, with
+    10% to spare) when the default would overflow. Returns it and the frame's
+    pair count."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.binning import compact_rects
+
+    cfg = RasterConfig(tile_size=tile_size)
+    c = compact_rects(proj, width, height, cfg)
+    total = int(c.num_pairs) + int(c.overflow)
+    n = proj.mean2d.shape[0]
+    ppg = cfg.pairs_per_gaussian
+    while cfg.pair_capacity(n) < 1.1 * total:
+        ppg += 4.0
+        cfg = RasterConfig(tile_size=tile_size, pairs_per_gaussian=ppg)
+    return cfg, total
+
+
+def giant_grids(model, kernels, card: str) -> dict:
+    """Phase 9: the 1M bench scene at 7680x4320 (32 px tiles) and 3840x2160
+    (16 px tiles), fx scaled with the width. K4 (int64 rects) integer-equal
+    to its plain version over the whole capacity and timed; the 4K frame
+    through render() against the plain path on the card; the 8K frame
+    through render() (overflow 0, finite, request ms, then a profile of one
+    request). The launch counts are zeroed just before the timed render()
+    calls and read just after."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.render import render
+
+    recs, launches = {}, {}
+    for width, height, ts in GIANT_FRAMES:
+        label = f"{width}x{height}/{ts}px"
+        cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0),
+                      fx=FX * width / WIDTH, fy=FX * width / WIDTH,
+                      width=width, height=height, device=model.device)
+        with torch.no_grad():
+            cfg, total = sized_cfg(project(model, cam, RasterConfig()),
+                                   width, height, ts)
+            print(f"{label}: {total} pairs; pairs_per_gaussian "
+                  f"{cfg.pairs_per_gaussian} (capacity "
+                  f"{cfg.pair_capacity(model.capacity)})")
+            rec, c = check_expand(model, cam, cfg, False, label, card,
+                                  width=width, height=height)
+            if c.rect_c.dtype != torch.int64:
+                raise AssertionError(f"{label}: rects are {c.rect_c.dtype}")
+        del c
+        for k in kernels:
+            k.launches = 0
+        times = []
+        with torch.inference_mode():
+            for _ in range(4):                   # one warm-up, 3 requests
+                t0 = time.perf_counter()
+                out = render(model, cam, cfg)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if out.image.shape != (height, width, 3) or int(out.overflow) != 0 \
+                    or not bool(torch.isfinite(out.image).all()) \
+                    or float(out.image.max()) <= 0.0:
+                raise AssertionError(f"{label}: shape {tuple(out.image.shape)}, "
+                                     f"overflow {int(out.overflow)}")
+            launches[label] = {k.name: k.launches for k in kernels}
+            if launches[label]["expand"] < 4 or launches[label]["forward"] < 4:
+                raise AssertionError(f"{label}: launches {launches[label]}")
+            err = None
+            if ts == 32:
+                profile(lambda: render(model, cam, cfg), f"{label} request",
+                        card, top=10)
+            if ts == 16:
+                want = render(model, cam, cfg, impl="torch")
+                err = assert_budget(out.image, want.image, f"{label} image")
+                assert_budget(out.transmittance, want.transmittance,
+                              f"{label} transmittance")
+        print(f"render() {label} n={model.capacity}: {int(out.num_pairs)} "
+              f"pairs, overflow 0, request ms {', '.join(f'{t:.3f}' for t in times[1:])} "
+              f"(host clock to synchronize; warm-up {times[0]:.3f})"
+              + ("" if err is None else f"; against the plain path max|diff| "
+                                        f"{err:.3e}")
+              + f"; launches {launches[label]} | {card}")
+        rec.update(request_ms=times[1:], launches=launches[label],
+                   num_pairs=int(out.num_pairs), image_err=err)
+        recs[label] = rec
+        del out
+        torch.cuda.empty_cache()
+    return recs
+
+
+def splats2d_phase(kernels, card: str) -> dict:
+    """Phase 10: 1M 2D splats (2-10 px, opacity 0.7) at 1920x1080. Render
+    and backward through K1-K4 against the plain versions on the card
+    (image within the budget, every gradient within 2e-3 of its largest
+    entry), request ms, then 20 Adam steps toward a target rendered from a
+    perturbed copy (finite falling loss, K1-K4 on every step)."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.models import (
+        project_splats2d, random_splats2d, render_splats2d)
+
+    device = torch.device("cuda")
+    model = random_splats2d(torch.Generator().manual_seed(0), N_GAUSSIANS,
+                            WIDTH, HEIGHT, scale_range=(2.0, 10.0),
+                            opacity=0.7, device=device)
+    with torch.no_grad():
+        cfg, total = sized_cfg(project_splats2d(model, RasterConfig(), WIDTH,
+                                                HEIGHT), WIDTH, HEIGHT)
+        ref = copy.deepcopy(model)
+        gen = torch.Generator(device=device).manual_seed(21)
+        ref.colors.add_(0.2 * torch.randn(ref.colors.shape, generator=gen,
+                                          device=device)).clamp_(0.0, 1.0)
+        ref.means2d.add_(torch.randn(ref.means2d.shape, generator=gen,
+                                     device=device))
+        target = render_splats2d(ref, WIDTH, HEIGHT, cfg).image
+    del ref
+    print(f"2D splats {WIDTH}x{HEIGHT} n={N_GAUSSIANS}: {total} pairs, "
+          f"pairs_per_gaussian {cfg.pairs_per_gaussian}")
+
+    grads, images = {}, {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        out = render_splats2d(model, WIDTH, HEIGHT, cfg, impl=impl)
+        ((out.image - target) ** 2).mean().backward()
+        if int(out.overflow) != 0:
+            raise AssertionError(f"2D splats overflow {int(out.overflow)}")
+        images[impl] = out.image.detach()
+        grads[impl] = {k: p.grad.clone() for k, p in model.trainable().items()}
+    err = assert_budget(images["cuda"], images["torch"], "2D splat image")
+    worst = 0.0
+    for k, want in grads["torch"].items():
+        got = grads["cuda"][k]
+        rel = float(((got - want).abs() / want.abs().max().clamp(min=1e-30)).max())
+        worst = max(worst, rel)
+        if rel > 2e-3 or not bool(torch.isfinite(got).all()) or not bool(want.any()):
+            raise AssertionError(f"2D splat gradient {k}: {rel:.3e}")
+    del grads, images
+    print(f"2D splats against the plain versions: image max|diff| {err:.3e}, "
+          f"gradients (5 groups) within {worst:.3e} of each one's largest entry")
+
+    req = []
+    with torch.inference_mode():
+        for _ in range(4):
+            t0 = time.perf_counter()
+            render_splats2d(model, WIDTH, HEIGHT, cfg)
+            torch.cuda.synchronize()
+            req.append((time.perf_counter() - t0) * 1e3)
+
+    opt = torch.optim.Adam([dict(params=[model.means2d], lr=0.05),
+                            dict(params=[model.log_scales, model.thetas,
+                                         model.logit_opacities], lr=0.01),
+                            dict(params=[model.colors], lr=0.01)])
+    for k in kernels:
+        k.launches = 0
+    losses, step_ms = [], []
+    for i in range(20):
+        before = [k.launches for k in kernels]
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        out = render_splats2d(model, WIDTH, HEIGHT, cfg)
+        loss = ((out.image - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = [k.launches - b for k, b in zip(kernels, before)]
+        losses.append(float(loss.detach()))
+        if min(per_step) < 1 or int(out.overflow) != 0 \
+                or not math.isfinite(losses[-1]):
+            raise AssertionError(f"2D step {i + 1}: launches {per_step}, "
+                                 f"overflow {int(out.overflow)}, loss {losses[-1]}")
+    launches = {k.name: k.launches for k in kernels}
+    if not losses[-1] < 0.9 * losses[0]:
+        raise AssertionError(f"2D fit: loss {losses[0]} -> {losses[-1]}")
+    print(f"2D splats: request ms {', '.join(f'{t:.3f}' for t in req[1:])} "
+          f"(warm-up {req[0]:.3f}); 20 Adam steps, step ms median "
+          f"{float(np.median(step_ms[1:])):.3f} (first {step_ms[0]:.3f}), loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches} | {card}")
+    del model, opt, target, out
+    torch.cuda.empty_cache()
+    return dict(request_ms=req[1:], step_ms=step_ms, losses=losses,
+                launches=launches, image_err=err, grad_rel=worst)
+
+
+SHARDED_TIMEOUT_S = 600
+# The raster configuration of the sharded steps (see `sharded_phase`).
+STEP_CFG = dict(trans_eps=0.0)
+
+
+def sharded_inputs(device):
+    """The sharded phase's scene, its two views and their targets (rendered
+    from a copy with perturbed colours), the same in every process."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.render import render
+
+    model = bench_scene(N_GAUSSIANS, device)
+    cams = [look_at(eye=eye, target=(0.0, 0.0, 0.0), fx=FX, fy=FX,
+                    width=WIDTH, height=HEIGHT, device=device)
+            for eye in ((0.0, 0.0, -4.0), (0.6, 0.3, -3.9))]
+    ref = copy.deepcopy(model)
+    gen = torch.Generator(device=device).manual_seed(11)
+    with torch.no_grad():
+        ref.sh_dc.add_(0.3 * torch.randn(ref.sh_dc.shape, generator=gen,
+                                         device=device))
+        gts = torch.stack([render(ref, c, RasterConfig()).image for c in cams])
+    return model, cams, gts
+
+
+def sharded_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of the sharded phase (2 ranks on one card, gloo): the
+    tile-sharded render (tile=2), then one step at (data=1, tile=2) and at
+    (data=2, tile=1), each followed by 2 timed steps. Writes its results to
+    out/rank<r>.pt."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
+    from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
+    from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
+    from gaussiansplat_tpu_torch.parallel import (
+        make_mesh, make_sharded_train_step, make_tile_sharded_render,
+        pad_targets, stack_cameras)
+    from gaussiansplat_tpu_torch.train import init_train_state
+
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    res = {}
+    try:
+        cfg = RasterConfig()
+        model, cams, gts = sharded_inputs(device)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+        f = make_tile_sharded_render(make_mesh(1, 2), cfg, WIDTH, HEIGHT, 3)
+        for k in kernels:
+            k.launches = 0
+        times = []
+        with torch.inference_mode():
+            for _ in range(3):
+                t0 = time.perf_counter()
+                img, trans = f(model, cams[0], bg)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        res["render"] = dict(image=img.cpu(), trans=trans.cpu(), ms=times,
+                             launches={k.name: k.launches for k in kernels})
+        tcfg = TrainConfig()
+        extent = float(scene_extent(model))
+        cfg = RasterConfig(**STEP_CFG)
+        for data, tile in ((1, 2), (2, 1)):
+            mesh = make_mesh(data, tile)
+            m = copy.deepcopy(model)
+            state = init_train_state(m, tcfg, extent)
+            step = make_sharded_train_step(mesh, cfg, tcfg, WIDTH, HEIGHT, 3,
+                                           return_grads=True)
+            stacked = stack_cameras(cams[:data])
+            targets = pad_targets(gts[:data], HEIGHT, cfg.tile_size, tile)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            state, met = step(state, stacked, targets)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k.name: k.launches for k in kernels}
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in m.trainable().values()]).cpu()
+            rec = dict(loss=float(met["loss"]), overflow=int(met["overflow"]),
+                       digest=hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                       launches=launches, first_ms=first_ms)
+            if mesh.rank == 0:
+                rec["grads"] = {k: g.cpu() for k, g in met["grads"].items()}
+            del met
+            ms = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                state, met = step(state, stacked, targets)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            rec["ms"] = ms
+            res[f"step_d{data}t{tile}"] = rec
+            del state, m, step, met
+            torch.cuda.empty_cache()
+        res["rank"] = rank
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(card: str) -> dict:
+    """Phase 11: the sharded paths in 2 gloo ranks on the one card (NCCL
+    refuses two ranks on one device; the collective helpers stage the
+    card's tensors through host memory on gloo). Each rank is this script
+    with `--sharded-rank`; a rank's failure or a timeout fails the phase.
+    Then, here: the tile-sharded render against render() (image budget),
+    each step's loss within 1e-5 relative of the single-device
+    mean-of-views loss, its gradients within 2e-3 of each group's largest
+    entry, the replicas bit-equal, K1-K4 launched in every rank.
+
+    The steps run with the tile early exit off (`STEP_CFG`): a tile's
+    chunks are aligned to the pair list, which differs between a strip and
+    the whole frame, so with the exit on a tile may stop a chunk sooner or
+    later (the render's ~6.5e-5) and the DSSIM's curvature (1 / C2) turns
+    that into gradient differences of ~2e-3 of the largest entry. Without
+    it both sides composite the same pairs in the same order and the
+    comparison holds the sharding itself."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.render import render
+    from gaussiansplat_tpu_torch.train.loss import photometric_loss
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{os.path.join(tmp, 'store')}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), "--world", str(world), "--store", store, "--out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARDED_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"sharded rank {r} exited {p.returncode}:"
+                                     f"\n{log[-6000:]}")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+
+    device = torch.device("cuda")
+    cfg, tcfg = RasterConfig(), TrainConfig()
+    model, cams, gts = sharded_inputs(device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    with torch.inference_mode():
+        full = render(model, cams[0], cfg, background=bg)
+    rec = {"wall_s": wall_s}
+    for r, res in enumerate(ranks):
+        err = assert_budget(res["render"]["image"].to(device), full.image,
+                            f"rank {r} tile-sharded image")
+        assert_budget(res["render"]["trans"].to(device), full.transmittance,
+                      f"rank {r} tile-sharded transmittance")
+        if min(res["render"]["launches"][k] for k in ("expand", "forward")) < 3:
+            raise AssertionError(f"rank {r} render launches "
+                                 f"{res['render']['launches']}")
+        print(f"sharded render (data=1, tile=2) rank {r}: max|diff| {err:.3e} "
+              f"against render(); ms {', '.join(f'{t:.3f}' for t in res['render']['ms'])}; "
+              f"launches {res['render']['launches']} | {card}")
+    rec["render_ms"] = [res["render"]["ms"] for res in ranks]
+    del full
+    cfg = RasterConfig(**STEP_CFG)
+    for data, tile in ((1, 2), (2, 1)):
+        key = f"step_d{data}t{tile}"
+        model.zero_grad(set_to_none=True)
+        loss = sum(photometric_loss(render(model, c, cfg).image, g,
+                                    tcfg.ssim_lambda)
+                   for c, g in zip(cams[:data], gts[:data])) / data
+        loss.backward()
+        loss = float(loss.detach())
+        want = {k: p.grad for k, p in model.trainable().items()}
+        worst = 0.0
+        for name, g in ranks[0][key]["grads"].items():
+            w = want[name]
+            rel = float(((g.to(device) - w).abs()
+                         / w.abs().max().clamp(min=1e-30)).max())
+            worst = max(worst, rel)
+            if rel > 2e-3 or not bool(w.any()):
+                raise AssertionError(f"{key} gradient {name}: {rel:.3e}")
+        lrel = max(abs(res[key]["loss"] - loss) / abs(loss) for res in ranks)
+        if lrel > 1e-5:
+            raise AssertionError(f"{key} loss {[res[key]['loss'] for res in ranks]}"
+                                 f" vs {loss}")
+        if len({res[key]["digest"] for res in ranks}) != 1:
+            raise AssertionError(f"{key}: replicas differ after the step")
+        for r, res in enumerate(ranks):
+            if min(res[key]["launches"].values()) < 1 or res[key]["overflow"]:
+                raise AssertionError(f"{key} rank {r}: {res[key]['launches']}")
+            print(f"sharded step (data={data}, tile={tile}) rank {r}: loss "
+                  f"{res[key]['loss']:.7f} (single device {loss:.7f}), "
+                  f"step ms {res[key]['first_ms']:.3f} (first), "
+                  f"{', '.join(f'{t:.3f}' for t in res[key]['ms'])}; launches "
+                  f"{res[key]['launches']} | {card}")
+        print(f"sharded step (data={data}, tile={tile}): loss within "
+              f"{lrel:.3e} relative, gradients within {worst:.3e} of each "
+              f"group's largest entry, replicas bit-equal")
+        rec[key] = dict(loss_rel=lrel, grad_rel=worst,
+                        ms=[res[key]["ms"] for res in ranks],
+                        launches=[res[key]["launches"] for res in ranks])
+    print(f"sharded phase: 2 gloo ranks on one card in {wall_s:.3f} s "
+          f"(scene builds included) | {card}")
+    del model, gts
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1058,7 +1527,7 @@ def main() -> int:
     # 4. serve: counts zeroed just before, read just after
     EXPAND.launches = 0
     FORWARD.launches = 0
-    times = serve(model, cfg, card)
+    times, native = serve(model, cfg, card)
     launches = {"expand": EXPAND.launches, "forward": FORWARD.launches}
     print(f"launches during serving: {launches}")
     for name, count in launches.items():
@@ -1089,6 +1558,20 @@ def main() -> int:
 
     # 8. the loop through the CLI: counts zeroed just before, read after
     cli_train([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+
+    # 9. giant frames (int64 rects): counts zeroed before each frame's
+    # render() calls, read just after
+    model = bench_scene(N_GAUSSIANS, device)
+    giant = giant_grids(model, [EXPAND, FORWARD], card)
+    del model
+    torch.cuda.empty_cache()
+
+    # 10. 2D splats: counts zeroed just before the 20 steps, read after
+    splats = splats2d_phase([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+
+    # 11. sharded, 2 gloo ranks on this card (each rank zeroes and reads
+    # its own counts around its render and each step)
+    sharded = sharded_phase(card)
 
     record = {"kernels": [
         {"name": "expand_pairs", "route": "cuda",
@@ -1128,6 +1611,18 @@ def main() -> int:
     for k, name in zip(record["kernels"], ("expand", "forward", "backward",
                                             "segreduce")):
         k["loop_launches"] = loop_launches[name]
+        k["splats2d_launches"] = splats["launches"][name]
+        k["sharded_step_launches"] = [
+            r[name] for key in ("step_d1t2", "step_d2t1")
+            for r in sharded[key]["launches"]]
+    for label, g in giant.items():
+        tag = "int64_" + label.replace("/", "_")
+        record["kernels"][0].update({
+            f"{tag}_ms": g["ms"], f"{tag}_plain_ms": g["plain_ms"],
+            f"{tag}_bound_ms": g["bound_ms"], f"{tag}_max_abs_err": g["err"],
+            f"{tag}_num_pairs": g["num_pairs"],
+            f"{tag}_launches": g["launches"]["expand"]})
+        record["kernels"][1][f"{tag}_launches"] = g["launches"]["forward"]
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1136,4 +1631,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--sharded-rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--sharded-rank", type=int, required=True)
+        ap.add_argument("--world", type=int, required=True)
+        ap.add_argument("--store", required=True)
+        ap.add_argument("--out", required=True)
+        a = ap.parse_args()
+        sys.exit(sharded_worker(a.sharded_rank, a.world, a.store, a.out))
     sys.exit(main())

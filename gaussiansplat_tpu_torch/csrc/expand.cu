@@ -10,6 +10,9 @@
 //              mask when that mask is non-zero;
 //   tile     = (ymin + k / tw) * tiles_x + xmin + k % tw, with (xmin, ymin,
 //              tw) decoded from g's packed rect by the (by, bw, bh) widths;
+//              the rect is int32 where its four fields fit 31 bits and int64
+//              on larger tile grids (one body, two instantiations:
+//              gs_expand_pairs and gs_expand_pairs_i64);
 //   packed   : key[p] = (tile << rank_bits) | g, or `sentinel` for p >= num_pairs;
 //   separate : tile[p] (= `sentinel` for p >= num_pairs) and rank[p] = g.
 //
@@ -83,8 +86,9 @@ __device__ __forceinline__ int kth_set_bit(unsigned int m, int k) {
   return pos;
 }
 
+template <typename Rect>
 __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
-    const int* __restrict__ off, const int* __restrict__ rect,
+    const int* __restrict__ off, const Rect* __restrict__ rect,
     const int* __restrict__ mask, const int* __restrict__ num_pairs_ptr,
     int n, int capacity, int tiles_x, int rank_bits, int sentinel,
     int by, int bw, int bh, int packed,
@@ -131,11 +135,13 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
         if (p >= num_pairs) break;
         while (i + 1 < w && s_off[i + 1] <= p) ++i;
         const int g = g0 + i;
-        const int r = __ldg(rect + g);
+        const Rect r = __ldg(rect + g);
         const unsigned int m = static_cast<unsigned int>(__ldg(mask + g));
-        const int xm = r >> (by + bw + bh);
-        const int ym = (r >> (bw + bh)) & ((1 << by) - 1);
-        const int tw = max((r >> bh) & ((1 << bw) - 1), 1);
+        // Each field is at most 31 bits wide, so it fits an int once
+        // decoded in the rect's own width.
+        const int xm = static_cast<int>(r >> (by + bw + bh));
+        const int ym = static_cast<int>((r >> (bw + bh)) & ((Rect(1) << by) - 1));
+        const int tw = max(static_cast<int>((r >> bh) & ((Rect(1) << bw) - 1)), 1);
         int k = p - s_off[i];
         if (m != 0u) k = kth_set_bit(m, k);
         const int tile = (ym + k / tw) * tiles_x + xm + k % tw;
@@ -163,21 +169,43 @@ __global__ void __launch_bounds__(kThreads) expand_pairs_kernel(
   }
 }
 
+template <typename Rect>
+int launch_expand(const void* off, const void* rect, const void* mask,
+                  const void* num_pairs, int n, int capacity, int tiles_x,
+                  int rank_bits, int sentinel, int by, int bw, int bh,
+                  int packed, void* out_a, void* out_b, void* stream) {
+  const int blocks = (capacity + kSlotsPerBlock - 1) / kSlotsPerBlock;
+  expand_pairs_kernel<Rect><<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(off), static_cast<const Rect*>(rect),
+      static_cast<const int*>(mask), static_cast<const int*>(num_pairs),
+      n, capacity, tiles_x, rank_bits, sentinel, by, bw, bh, packed,
+      static_cast<int*>(out_a), static_cast<int*>(out_b));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// int32 rects (every field fits 31 bits together).
 extern "C" int gs_expand_pairs(
     const void* off, const void* rect, const void* mask, const void* num_pairs,
     int n, int capacity, int tiles_x, int rank_bits, int sentinel,
     int by, int bw, int bh, int packed, void* out_a, void* out_b,
     void* stream) {
-  const int blocks = (capacity + kSlotsPerBlock - 1) / kSlotsPerBlock;
-  expand_pairs_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(off), static_cast<const int*>(rect),
-      static_cast<const int*>(mask), static_cast<const int*>(num_pairs),
-      n, capacity, tiles_x, rank_bits, sentinel, by, bw, bh, packed,
-      static_cast<int*>(out_a), static_cast<int*>(out_b));
-  return static_cast<int>(cudaGetLastError());
+  return launch_expand<int>(off, rect, mask, num_pairs, n, capacity, tiles_x,
+                            rank_bits, sentinel, by, bw, bh, packed, out_a,
+                            out_b, stream);
+}
+
+// int64 rects: tile grids whose fields need more than 31 bits together.
+extern "C" int gs_expand_pairs_i64(
+    const void* off, const void* rect, const void* mask, const void* num_pairs,
+    int n, int capacity, int tiles_x, int rank_bits, int sentinel,
+    int by, int bw, int bh, int packed, void* out_a, void* out_b,
+    void* stream) {
+  return launch_expand<long long>(off, rect, mask, num_pairs, n, capacity,
+                                  tiles_x, rank_bits, sentinel, by, bw, bh,
+                                  packed, out_a, out_b, stream);
 }
 
 extern "C" const char* gs_error_string(int code) {

@@ -1,15 +1,15 @@
 """COLMAP sparse-model binary readers (cameras.bin / images.bin /
 points3D.bin): self-contained numpy implementations of the documented
-COLMAP format. The reference package can also parse images.bin and
-points3D.bin with a native library (its `data/native_loader.py`); the port
-reads with numpy only.
+COLMAP format. images.bin and points3D.bin are parsed by the native C++
+parser (native/colmap_io.cpp, data/native_loader.py) when it builds, with
+numpy otherwise; `LAST_PARSER` says which one ran last.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -49,7 +49,40 @@ def read_cameras_bin(path: str) -> Dict[int, dict]:
     return cams
 
 
+# Which parser read images.bin or points3D.bin last: "native" or "numpy".
+LAST_PARSER: Optional[str] = None
+_COLMAP_NATIVE = None
+
+
+def _colmap_native():
+    """The native COLMAP parser, built at first use; None without a
+    toolchain."""
+    global _COLMAP_NATIVE
+    if _COLMAP_NATIVE is None:
+        from . import native_loader
+
+        _COLMAP_NATIVE = native_loader.load_colmap_native() or False
+    return _COLMAP_NATIVE or None
+
+
+def _native_read(method: str, path: str):
+    global LAST_PARSER
+    native = _colmap_native()
+    if native is not None:
+        try:
+            out = getattr(native, method)(path)
+            LAST_PARSER = "native"
+            return out
+        except Exception:
+            pass
+    LAST_PARSER = "numpy"
+    return None
+
+
 def read_images_bin(path: str) -> List[dict]:
+    native = _native_read("read_images", path)
+    if native is not None:
+        return native
     images = []
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
@@ -72,6 +105,9 @@ def read_images_bin(path: str) -> List[dict]:
 
 
 def read_points3d_bin(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    native = _native_read("read_points3d", path)
+    if native is not None:
+        return native
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
         xyz = np.empty((n, 3), np.float64)

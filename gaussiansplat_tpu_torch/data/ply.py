@@ -2,12 +2,16 @@
 
 Field names match the ecosystem: `x,y,z, nx,ny,nz, f_dc_0..2, f_rest_0..44,
 opacity, scale_0..2, rot_0..3`.
+
+`load_gaussian_ply` parses with the native C++ parser (native/ply_io.cpp,
+data/native_loader.py) when it builds, and with numpy otherwise; both give
+the same float32 columns. `LAST_PARSER` says which one ran last.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -57,6 +61,10 @@ def _parse_header(f) -> Tuple[List[PlyElement], str]:
     if fmt not in ("binary_little_endian", "ascii"):
         raise ValueError(f"unsupported PLY format {fmt}")
     return elements, fmt
+
+
+# Which parser `load_gaussian_ply` used last: "native", "numpy" or None.
+LAST_PARSER: Optional[str] = None
 
 
 def read_ply(path: str) -> Dict[str, Dict[str, np.ndarray]]:
@@ -110,7 +118,11 @@ def load_gaussian_ply(path: str):
     """Parse an INRIA 3DGS PLY into float32 arrays (means, quats, log_scales,
     logit_opacities, sh_dc (N, 1, 3), sh_rest (N, K-1, 3)). `f_rest` is
     stored channel-major in the file ((3, K-1) flattened)."""
-    vertex = read_ply(path)["vertex"]
+    global LAST_PARSER
+    vertex = _try_native_load(path)
+    LAST_PARSER = "numpy" if vertex is None else "native"
+    if vertex is None:
+        vertex = read_ply(path)["vertex"]
     n = len(vertex["x"])
     means = np.stack([vertex["x"], vertex["y"], vertex["z"]], -1).astype(np.float32)
     quats = np.stack([vertex[f"rot_{i}"] for i in range(4)], -1).astype(np.float32)
@@ -153,3 +165,32 @@ def save_gaussian_ply(path, means, quats, log_scales, logit_opacities, sh_dc,
     for i in range(4):
         vertex[f"rot_{i}"] = f32(quats[:, i])
     write_ply(path, vertex)
+
+
+# ----------------------------------------------------------------------------
+# native fast path
+# ----------------------------------------------------------------------------
+
+_NATIVE = None
+
+
+def _native_lib():
+    """The native PLY parser, built at first use; None without a toolchain."""
+    global _NATIVE
+    if _NATIVE is None:
+        from . import native_loader
+
+        _NATIVE = native_loader.load_ply_native() or False
+    return _NATIVE or None
+
+
+def _try_native_load(path: str):
+    """The vertex columns by the native parser, or None (no library, or a
+    file it does not take: ASCII, list properties)."""
+    lib = _native_lib()
+    if lib is None:
+        return None
+    try:
+        return lib.parse_vertex_element(path)
+    except Exception:
+        return None

@@ -240,7 +240,8 @@ def compact_rects(
 
 def expand_compacted(c: CompactedRects, impl: str):
     """Run the pair expansion on compacted rects: the K4 kernel ('cuda') or
-    its plain version ('torch'). Returns the packed keys, or (tile, rank)."""
+    its plain version ('torch'), for int32 and int64 rects alike. Returns
+    the packed keys, or (tile, rank)."""
     fn = expand_pairs_cuda if impl == "cuda" else expand_pairs_torch
     return fn(c.off_c, c.rect_c, c.mask_c, c.num_pairs, c.capacity,
               c.tiles_x, c.num_tiles, c.rank_bits, c.pack_bits,

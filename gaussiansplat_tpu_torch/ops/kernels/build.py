@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -57,7 +57,8 @@ class CudaKernel:
         self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._lib = None
+        self._fns = {}
         self._err = None
 
     @property
@@ -100,23 +101,28 @@ class CudaKernel:
     def build(self) -> None:
         self._finish_build(self._start_build())
 
-    def fn(self):
-        """The bound C launcher (building the library at first use)."""
-        if self._fn is None:
-            self.build()
-            lib = ctypes.CDLL(str(self.library_path()))
-            f = getattr(lib, self.symbol)
+    def fn(self, symbol: Optional[str] = None):
+        """The bound C launcher `symbol` (default: the kernel's own), building
+        the library at first use. A source may export several launchers
+        with the same arguments (one per instantiation of a template)."""
+        symbol = symbol or self.symbol
+        if symbol not in self._fns:
+            if self._lib is None:
+                self.build()
+                lib = ctypes.CDLL(str(self.library_path()))
+                err = lib.gs_error_string
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib, self._err = lib, err
+            f = getattr(self._lib, symbol)
             f.argtypes = self.argtypes
             f.restype = ctypes.c_int
-            err = lib.gs_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._err, self._fn = err, f
-        return self._fn
+            self._fns[symbol] = f
+        return self._fns[symbol]
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, symbol: Optional[str] = None) -> None:
         """Call the launcher; raise if the launch was refused."""
-        rc = self.fn()(*args)
+        rc = self.fn(symbol)(*args)
         if rc != 0:
             msg = self._err(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: "

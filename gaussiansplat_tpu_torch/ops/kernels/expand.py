@@ -7,7 +7,9 @@ plus row-major k. Packed regime (tile_bits + rank_bits <= 31): one int32
 key (tile << rank_bits) | g per slot, the sentinel num_tiles << rank_bits
 past num_pairs. Otherwise two int32 streams: tile (num_tiles past
 num_pairs) and g. Both versions define every slot, so they agree over the
-whole capacity.
+whole capacity. The rects are int32, or int64 on tile grids whose four rect
+fields need more than 31 bits (the kernel has one instantiation for each:
+`gs_expand_pairs`, `gs_expand_pairs_i64`).
 
 The kernel finds owners block by block (csrc/expand.cu): `warp_count_le`
 and `block_owners` below are plain twins of that search, for the CPU tests.
@@ -130,11 +132,16 @@ def block_owners(off_c: torch.Tensor, num_pairs: int,
     return torch.tensor(owners, dtype=I32)
 
 
-def _check_i32(name: str, t: torch.Tensor, shape) -> None:
+# The launcher of each rect width.
+RECT_SYMBOLS = {torch.int32: "gs_expand_pairs", torch.int64: "gs_expand_pairs_i64"}
+
+
+def _check_int(name: str, t: torch.Tensor, shape, dtypes=(I32,)) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != I32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -144,11 +151,13 @@ def _check_i32(name: str, t: torch.Tensor, shape) -> None:
 def expand_pairs_cuda(off_c, rect_c, mask_c, num_pairs, capacity: int,
                       tiles_x: int, num_tiles: int, rank_bits: int,
                       pack_bits, packed: bool):
-    """Launch K4 on the current stream. num_pairs stays on the device."""
+    """Launch K4 on the current stream. num_pairs stays on the device.
+    rect_c is int32 or int64; everything else int32."""
     n = off_c.shape[0]
-    for name, t in (("off_c", off_c), ("rect_c", rect_c), ("mask_c", mask_c)):
-        _check_i32(name, t, (n,))
-    _check_i32("num_pairs", num_pairs, ())
+    _check_int("off_c", off_c, (n,))
+    _check_int("rect_c", rect_c, (n,), tuple(RECT_SYMBOLS))
+    _check_int("mask_c", mask_c, (n,))
+    _check_int("num_pairs", num_pairs, ())
     if n < 1 or capacity < 1 or capacity > 2 ** 31 - SLOTS_PER_BLOCK:
         raise ValueError(f"expand needs n >= 1 and 1 <= capacity <= 2^31 - "
                          f"{SLOTS_PER_BLOCK} (n={n}, capacity={capacity})")
@@ -161,5 +170,6 @@ def expand_pairs_cuda(off_c, rect_c, mask_c, num_pairs, capacity: int,
         off_c.data_ptr(), rect_c.data_ptr(), mask_c.data_ptr(),
         num_pairs.data_ptr(), n, capacity, tiles_x, rank_bits, sentinel,
         by, bw, bh, int(packed), out_a.data_ptr(), out_b.data_ptr(), stream,
+        symbol=RECT_SYMBOLS[rect_c.dtype],
     )
     return out_a if packed else (out_a, out_b)

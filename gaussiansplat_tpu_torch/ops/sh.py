@@ -66,6 +66,17 @@ def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     return torch.stack(comps, dim=-1)
 
 
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """Band-major (..., K_total, 3) SH coefficients -> RGB (..., 3), clamped
+    >= 0. `dirs` need not be normalized; coefficients beyond degree are
+    ignored (progressive SH-degree training with a fixed buffer)."""
+    k = num_sh_coeffs(degree)
+    d = dirs / torch.clamp(torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
+    basis = sh_basis(d, degree)  # (..., k)
+    rgb = torch.sum(basis[..., :, None] * sh[..., :k, :], dim=-2) + 0.5
+    return torch.clamp(rgb, min=0.0)
+
+
 def eval_sh_flat(sh_flat: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """FLAT (N, 3*K_total) SH coefficients -> RGB (N, 3), clamped >= 0.
 

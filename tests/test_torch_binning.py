@@ -129,6 +129,43 @@ def test_enormous_grid_int64_rects():
     _assert_binning_equal(bt, bj)
 
 
+@pytest.mark.parametrize("width,height,tile,n,packed", [
+    (7680, 4320, 32, 64, True),        # 240 x 135 tiles: 32 rect bits
+    (7680, 4320, 32, 70_000, False),   # 15 tile + 17 rank bits: two streams
+    (3840, 2160, 16, 64, True),        # 240 x 135 tiles of 16 px
+], ids=["8k-packed", "8k-streams", "4k-16px"])
+def test_int64_rects_route_to_k4(width, height, tile, n, packed, monkeypatch):
+    """expand_compacted sends int64 rects with impl='cuda' to K4's wrapper
+    (never to the plain version), whose int64 instantiation is a launcher
+    of expand.cu; the plain version, which stands in for the launch here,
+    matches the reference on the same grid."""
+    from gaussiansplat_tpu_torch.ops import binning
+    from gaussiansplat_tpu_torch.ops.kernels.expand import RECT_SYMBOLS
+
+    jp, *_ = _fake_proj(n, width, height, seed=7, n_valid=64, max_r=300)
+    cfg = RasterConfig(tile_size=tile)
+    c = compact_rects(port_projected(jp), width, height, cfg, capacity=8192)
+    assert c.rect_c.dtype == torch.int64 and c.packed_keys == packed
+    calls = []
+
+    def k4(*args):
+        calls.append(args[1].dtype)
+        return expand_pairs_torch(*args)
+
+    monkeypatch.setattr(binning, "expand_pairs_cuda", k4)
+    monkeypatch.setattr(binning, "expand_pairs_torch", None)
+    got = binning.expand_compacted(c, "cuda")
+    assert calls == [torch.int64]
+    bt = binning.sort_pairs(c, got)
+    bj = jax.jit(lambda p: j_bin(p, width, height, JRasterConfig(tile_size=tile),
+                                 capacity=8192, impl="xla"))(jp)
+    _assert_binning_equal(bt, bj)
+    assert RECT_SYMBOLS[torch.int64] == "gs_expand_pairs_i64"
+    src = (CSRC_DIR / "expand.cu").read_text()
+    assert 'extern "C" int gs_expand_pairs_i64(' in src
+    assert "launch_expand<long long>" in src
+
+
 def test_pre_sort_positions_are_contiguous():
     """Valid pairs occupy pre-sort positions [0, num_pairs): the backward
     reduction of the next slice relies on it."""

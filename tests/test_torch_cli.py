@@ -99,3 +99,35 @@ def test_quality_run_small(tmp_path):
     assert again["gt_cached"]
     np.testing.assert_allclose(again["gt_psnr_deg0"], result["gt_psnr_deg0"],
                                atol=0.05)
+
+
+def _run_example(name, argv, monkeypatch):
+    import runpy
+
+    monkeypatch.setattr("sys.argv", [name, *argv])
+    with pytest.raises(SystemExit) as exc:
+        runpy.run_module(f"gaussiansplat_tpu_torch.examples.{name}",
+                         run_name="__main__")
+    return exc.value.code
+
+
+@pytest.mark.parametrize("name", ["train_synthetic", "render_ply"])
+def test_example_help(name, monkeypatch, capsys):
+    assert _run_example(name, ["--help"], monkeypatch) == 0
+    assert "--device" in capsys.readouterr().out
+
+
+def test_examples_train_then_render(tmp_path, monkeypatch):
+    out = str(tmp_path / "run")
+    assert _run_example("train_synthetic", [
+        "--synthetic-n", "64", "--synthetic-size", "64", "--sh-degree", "1",
+        "--iterations", "2", "--device", "cpu", "--out", out,
+        "--no-previews"], monkeypatch) == 0
+    ply = os.path.join(out, "point_cloud.ply")
+    renders = str(tmp_path / "renders")
+    assert _run_example("render_ply", [
+        "--ply", ply, "--out", renders, "--frames", "2", "--width", "64",
+        "--height", "48", "--fx", "60", "--sh-degree", "1", "--device",
+        "cpu"], monkeypatch) == 0
+    assert sorted(f[:10] for f in os.listdir(renders)) == ["frame_0000",
+                                                           "frame_0001"]

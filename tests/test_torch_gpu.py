@@ -612,3 +612,130 @@ def test_fit_on_the_card_launches_every_kernel(cuda):
     assert sum(m.get("cloned", 0) + m.get("split", 0) for m in train) > 0
     assert int(model.num_alive) > 512 and np.isfinite(met["loss"])
     assert model.device.type == "cuda"
+
+
+@pytest.mark.parametrize(
+    "n,width,height,tile_size", [(4096, 7680, 4320, 32),
+                                 (70_000, 7680, 4320, 32),
+                                 (4096, 3840, 2160, 16)],
+    ids=["8k_packed_keys", "8k_separate_streams", "4k_16px"])
+def test_expand_int64_rects_match_plain(cuda, n, width, height, tile_size):
+    """Tile grids whose rect needs more than 31 bits (240 x 135 tiles):
+    K4's int64 instantiation integer-equal to its plain version over the
+    whole capacity, in both key regimes (the int32 instantiation is held by
+    test_expand_int32_path_unchanged)."""
+    cfg = RasterConfig(tile_size=tile_size, pairs_per_gaussian=64.0)
+    model, cam = _scene(cuda, n, width, height, fx=0.5 * width)
+    with torch.no_grad():
+        c = compact_rects(_project(model, cam, cfg), width, height, cfg)
+        assert c.rect_c.dtype == torch.int64
+        assert c.packed_keys == (n < 10_000)
+        assert int(c.num_pairs) > 0 and int(c.overflow) == 0
+        before = EXPAND.launches
+        got = expand_compacted(c, "cuda")
+        want = expand_compacted(c, "torch")
+        torch.cuda.synchronize()
+    assert EXPAND.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["owner_over_a_block", "mask_bit31",
+                                  "separate_streams"])
+def test_expand_int32_path_unchanged(cuda, name):
+    """The same rects as int32 and widened to int64: both instantiations
+    give the plain version's output, bit for bit."""
+    counts, masks, rects, capacity, packed = _expand_case(name)
+    off, rect, mask, num_pairs = _compacted(cuda, counts, masks, rects,
+                                            capacity)
+    n = off.shape[0]
+    rank_bits = max(int(n - 1).bit_length(), 1)
+    outs = []
+    for r in (rect, rect.to(torch.int64)):
+        args = (off, r, mask, num_pairs, capacity, 64, 64 * 64, rank_bits,
+                (7, 7, 7), packed)
+        got = expand_pairs_cuda(*args)
+        outs.append(got if isinstance(got, tuple) else (got,))
+    want = expand_pairs_torch(off, rect, mask, num_pairs, capacity, 64,
+                              64 * 64, rank_bits, (7, 7, 7), packed)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="rect_c"):
+        expand_pairs_cuda(off, rect.to(torch.int16), mask, num_pairs,
+                          capacity, 64, 64 * 64, rank_bits, (7, 7, 7), packed)
+
+
+def test_render_4k_16px_tiles_matches_plain(cuda):
+    """A 3840x2160 frame with 16 px tiles (int64 rects) through render() on
+    the card against the plain path."""
+    cfg = RasterConfig(tile_size=16, pairs_per_gaussian=64.0)
+    model, cam = _scene(cuda, 20_000, 3840, 2160, fx=0.5 * 3840)
+    with torch.no_grad():
+        a = render(model, cam, cfg, impl="cuda")
+        b = render(model, cam, cfg, impl="torch")
+    assert int(a.overflow) == 0 and int(a.num_pairs) == int(b.num_pairs) > 0
+    assert_images_close(a.image.cpu().numpy(), b.image.cpu().numpy(),
+                        atol=1e-4)
+
+
+def test_splats2d_render_and_grads_match_plain(cuda):
+    """A 2D splat scene through K4, K1 (forward) and K2, K3 (backward)
+    against the plain versions: the image within the budget, every
+    gradient within 2e-3 of its largest entry."""
+    from gaussiansplat_tpu_torch.models import random_splats2d, render_splats2d
+
+    model = random_splats2d(torch.Generator().manual_seed(0), 3000, 320, 240,
+                            device=cuda)
+    target = torch.rand((240, 320, 3), generator=torch.Generator().manual_seed(1))
+    target = target.to(cuda)
+    grads, images = {}, {}
+    for impl in ("cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        counts = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
+        out = render_splats2d(model, 320, 240, impl=impl)
+        ((out.image - target) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        launched = [k.launches - c for k, c in
+                    zip((EXPAND, FORWARD, BACKWARD, SEGREDUCE), counts)]
+        assert launched == ([1, 1, 1, 1] if impl == "cuda" else [0, 0, 0, 0])
+        assert int(out.overflow) == 0
+        images[impl] = out.image.detach().cpu().numpy()
+        grads[impl] = {k: p.grad.clone() for k, p in model.trainable().items()}
+    assert_images_close(images["cuda"], images["torch"], atol=1e-4)
+    for k, want in grads["torch"].items():
+        got = grads["cuda"][k]
+        scale = want.abs().max().clamp(min=1e-12)
+        assert float(((got - want).abs() / scale).max()) <= 2e-3, k
+
+
+def test_strips_match_render(cuda):
+    """render_strip for every strip of a 4-way split, concatenated, against
+    render() on the card. The tile early exit is off: a tile's chunks are
+    aligned to the pair list, which differs between a strip and the whole
+    frame, so with it on a tile may stop a chunk sooner or later (up to
+    ~trans_eps a pixel); without it each tile composites the same pairs in
+    the same order."""
+    from gaussiansplat_tpu_torch.parallel import render_strip
+    from gaussiansplat_tpu_torch.parallel.render import strip_pair_capacity
+
+    cfg = RasterConfig(trans_eps=0.0)
+    model, cam = _scene(cuda, 8192, 320, 256, seed=2)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    counts = [k.launches for k in (EXPAND, FORWARD)]
+    with torch.no_grad():
+        strips = [render_strip(model, cam, cfg, 3, bg, 2 * i, 2,
+                               strip_pair_capacity(cfg, model.capacity, 4))
+                  for i in range(4)]
+        full = render(model, cam, cfg, background=bg)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip((EXPAND, FORWARD), counts)] == [5, 5]
+    assert all(int(s[2]["overflow"]) == 0 for s in strips)
+    img = torch.cat([s[0] for s in strips])[:256]
+    trans = torch.cat([s[1] for s in strips])[:256]
+    torch.testing.assert_close(img, full.image, rtol=0, atol=1e-5)
+    torch.testing.assert_close(trans, full.transmittance, rtol=0, atol=1e-5)

@@ -46,6 +46,40 @@ class TestQuaternion:
         theirs = ScipyRotation.from_quat(q[:, [1, 2, 3, 0]]).as_matrix()
         np.testing.assert_allclose(ours, theirs, atol=1e-5)
 
+    def test_rotmat_to_quat_matches_jax_and_roundtrips(self):
+        q = _quats(128, seed=1)
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        R = np.array(jq.quat_to_rotmat(jnp.asarray(q)))
+        # every pivot branch: identity-like (trace > 0) and the three
+        # half-turns about x, y and z (one diagonal entry largest)
+        R[:4] = np.stack([np.eye(3), np.diag([1.0, -1, -1]),
+                          np.diag([-1.0, 1, -1]), np.diag([-1.0, -1, 1])])
+        ours = tq.rotmat_to_quat(torch.as_tensor(R)).numpy()
+        np.testing.assert_allclose(
+            ours, np.asarray(jq.rotmat_to_quat(jnp.asarray(R))), atol=ATOL)
+        dot = np.abs(np.sum(q[4:] * ours[4:], axis=-1))
+        np.testing.assert_allclose(dot, 1.0, atol=1e-4)
+
+    @pytest.mark.parametrize("seed", [2, 3])
+    def test_covariance_matches_jax(self, seed):
+        rng = np.random.default_rng(seed)
+        q = rng.normal(size=(32, 4)).astype(np.float32)   # not normalized
+        s = np.exp(rng.normal(size=(32, 3))).astype(np.float32)
+        ours = tq.build_covariance_3d(torch.as_tensor(q), torch.as_tensor(s))
+        want = np.asarray(jq.build_covariance_3d(jnp.asarray(q), jnp.asarray(s)))
+        scale = np.abs(want).max(axis=(1, 2), keepdims=True)
+        np.testing.assert_allclose(ours.numpy() / scale, want / scale, atol=ATOL)
+        np.testing.assert_allclose(ours.numpy(),
+                                   np.swapaxes(ours.numpy(), 1, 2), atol=1e-4)
+        eigs = np.sort(np.linalg.eigvalsh(ours.numpy().astype(np.float64)), axis=-1)
+        np.testing.assert_allclose(eigs, np.sort(s.astype(np.float64) ** 2, axis=-1),
+                                   rtol=2e-2, atol=1e-5)
+
+    def test_covariance_unnormalized_quat(self):
+        cov = tq.build_covariance_3d(torch.tensor([[2.0, 0.0, 0.0, 0.0]]),
+                                     torch.ones((1, 3)))
+        np.testing.assert_allclose(cov[0].numpy(), np.eye(3), atol=ATOL)
+
     def test_random_quats_unit(self):
         g = torch.Generator().manual_seed(1)
         q = tq.random_quats(g, (128,))
@@ -74,6 +108,34 @@ class TestSH:
             np.asarray(jsh.eval_sh_flat(jnp.asarray(sh), jnp.asarray(dirs),
                                         degree)),
             atol=ATOL)
+
+    @pytest.mark.parametrize("degree", [0, 1, 2, 3])
+    def test_eval_band_major_matches_jax(self, degree):
+        rng = np.random.default_rng(11 + degree)
+        sh = rng.normal(size=(128, 16, 3)).astype(np.float32)
+        dirs = rng.normal(size=(128, 3)).astype(np.float32)
+        ours = tsh.eval_sh(torch.as_tensor(sh), torch.as_tensor(dirs), degree)
+        np.testing.assert_allclose(
+            ours.numpy(),
+            np.asarray(jsh.eval_sh(jnp.asarray(sh), jnp.asarray(dirs), degree)),
+            atol=ATOL)
+        # the same colours as the flat layout, and the extra bands ignored
+        np.testing.assert_allclose(
+            ours.numpy(),
+            tsh.eval_sh_flat(torch.as_tensor(sh.reshape(128, 48)),
+                             torch.as_tensor(dirs), degree).numpy(), atol=ATOL)
+        k = tsh.num_sh_coeffs(degree)
+        np.testing.assert_allclose(
+            tsh.eval_sh(torch.as_tensor(sh[:, :k]), torch.as_tensor(dirs),
+                        degree).numpy(), ours.numpy(), atol=ATOL)
+
+    def test_eval_band_major_dc_and_clamp(self):
+        sh = torch.zeros((5, 16, 3))
+        sh[:, 0, :] = 1.0
+        dirs = torch.tensor([[0.0, 0.0, 1.0]]).repeat(5, 1)
+        np.testing.assert_allclose(tsh.eval_sh(sh, dirs, 0).numpy(),
+                                   tsh.SH_C0 + 0.5, atol=ATOL)
+        assert (tsh.eval_sh(-5.0 * torch.ones((1, 1, 3)), dirs[:1], 0) >= 0).all()
 
     def test_dc_only_and_clamp(self):
         sh = torch.zeros((5, 48))
