@@ -69,13 +69,28 @@
    step at (data=1, tile=2) and at (data=2, tile=1) against the
    single-device mean-of-views loss (1e-5 relative) and gradients (2e-3),
    replicas bit-equal, K1-K4 in every rank, step ms per rank.
+12. Gaussian axis: 2 ranks (`--sharded-rank gauss`) and 4 ranks
+   (`--sharded-rank gauss2d`) of this script on the card, started from the
+   environment through `parallel.multihost.initialize` (gloo). The
+   gauss-sharded render (strip all_to_all) against `render()`, no row
+   dropped; one gauss-sharded step (loss 1e-5, each rank's gradient block
+   2e-3, K1-K4 in each rank, the counted all-to-all bytes equal to
+   `capacity.ici_bytes_per_step`, peak memory beside the plan's total);
+   the depth ring (image and transmittance 2e-4, MSE gradients 2e-3, bytes
+   equal to `capacity.ici_bytes_per_step_ring`); one (data, gauss) =
+   (2, 2) step against the single-device mean over two views, the data
+   replicas bit-equal. Render and step ms per rank.
+13. HBM: the single-card ceiling of a 1080p gauss-sharded step by
+   out-of-memory bisection over at most HBM_PROBES subprocess probes
+   (`--hbm-probe N`), seeded by the closed form at the nominal 80 GiB;
+   the measured budget and slack must agree with `parallel/capacity.py`.
 The serve phase also checks native IO: the CLI read the exported 1M PLY
 with the native parser; both parsers' times are printed.
 The launch counts are zeroed just before the serve, the train, the loop,
 the CLI-train, each giant frame's requests and the 2D steps (and in each
-rank around its render and steps) and read just after; every kernel of
-the phase must have launched (K1-K4 on every training step, K4 and K1 on
-every render).
+rank around its render, steps and ring) and read just after; every kernel
+of the phase must have launched (K1-K4 on every training step, K4 and K1
+on every render).
 
 Every phase raises on failure. The last two lines are one JSON object with
 per-kernel numbers and `{"ok": true, "device": {...}}`. Exits non-zero when
@@ -166,14 +181,17 @@ WIDTH, HEIGHT, N_GAUSSIANS, FX = 1920, 1080, 1_000_000, 1600.0
 SKEWED_SCALES = (0.05, 0.4)
 
 
-def bench_scene(n: int, device, seed: int = 0):
+def bench_scene(n: int, device, seed: int = 0, draw_on_device: bool = False):
     """The benchmark scene of the reference's bench.py at (WIDTH, HEIGHT, n):
     opacity 0.8, SH degree 3, world scale so every n tiles the screen at the
-    same per-splat pixel area."""
+    same per-splat pixel area. Drawn on the host (the same numbers on every
+    device), or on `device` when `draw_on_device` (faster at tens of
+    millions; other numbers of the same kind)."""
     from gaussiansplat_tpu_torch.models import random_model
 
     k = (1600.0 / FX) * ((WIDTH * HEIGHT / n) / 2.0736) ** 0.5
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=device if draw_on_device else "cpu")
+    g.manual_seed(seed)
     return random_model(g, n, sh_degree=3, extent=1.0, opacity=0.8,
                         scale_range=(0.004 * k, 0.012 * k), device=device)
 
@@ -1269,12 +1287,64 @@ def sharded_inputs(device):
     return model, cams, gts
 
 
-def sharded_worker(rank: int, world: int, store: str, out: str) -> int:
-    """One rank of the sharded phase (2 ranks on one card, gloo): the
+def free_port() -> int:
+    """A free TCP port on the loopback interface (the ranks' rendezvous)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_init() -> torch.device:
+    """A rank of this script: the process group from the environment that
+    `run_ranks` sets, as torchrun sets it (`multihost.initialize`, gloo:
+    NCCL refuses two ranks on one card)."""
+    from gaussiansplat_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(backend="gloo", timeout_s=SHARDED_TIMEOUT_S)
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def run_ranks(job: str, world: int):
+    """Start `world` ranks of this script (`--sharded-rank JOB`) on the one
+    card, wait for all of them and return their results (out/rank<r>.pt)
+    and the wall seconds. A rank's failure or a timeout fails the phase."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank", job,
+             "--out", tmp], env=dict(env, RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARDED_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"{job} rank {r} exited {p.returncode}:"
+                                     f"\n{log[-6000:]}")
+        wall_s = time.perf_counter() - t0
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(world)], wall_s
+
+
+def tile_worker(out: str) -> int:
+    """One rank of the sharded phase (2 ranks on one card): the
     tile-sharded render (tile=2), then one step at (data=1, tile=2) and at
     (data=2, tile=1), each followed by 2 timed steps. Writes its results to
     out/rank<r>.pt."""
-    import datetime
     import hashlib
 
     import torch.distributed as dist
@@ -1292,12 +1362,8 @@ def sharded_worker(rank: int, world: int, store: str, out: str) -> int:
     from gaussiansplat_tpu_torch.train import init_train_state
 
     kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    dist.init_process_group("gloo", init_method=store, rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    device = rank_init()
+    rank = dist.get_rank()
     res = {}
     try:
         cfg = RasterConfig()
@@ -1362,9 +1428,9 @@ def sharded_phase(card: str) -> dict:
     """Phase 11: the sharded paths in 2 gloo ranks on the one card (NCCL
     refuses two ranks on one device; the collective helpers stage the
     card's tensors through host memory on gloo). Each rank is this script
-    with `--sharded-rank`; a rank's failure or a timeout fails the phase.
-    Then, here: the tile-sharded render against render() (image budget),
-    each step's loss within 1e-5 relative of the single-device
+    with `--sharded-rank tile`; a rank's failure or a timeout fails the
+    phase. Then, here: the tile-sharded render against render() (image
+    budget), each step's loss within 1e-5 relative of the single-device
     mean-of-views loss, its gradients within 2e-3 of each group's largest
     entry, the replicas bit-equal, K1-K4 launched in every rank.
 
@@ -1380,31 +1446,7 @@ def sharded_phase(card: str) -> dict:
     from gaussiansplat_tpu_torch.render import render
     from gaussiansplat_tpu_torch.train.loss import photometric_loss
 
-    world = 2
-    with tempfile.TemporaryDirectory() as tmp:
-        store = f"file://{os.path.join(tmp, 'store')}"
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
-             str(r), "--world", str(world), "--store", store, "--out", tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=SHARDED_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"sharded rank {r} exited {p.returncode}:"
-                                     f"\n{log[-6000:]}")
-        wall_s = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
-
+    ranks, wall_s = run_ranks("tile", 2)
     device = torch.device("cuda")
     cfg, tcfg = RasterConfig(), TrainConfig()
     model, cams, gts = sharded_inputs(device)
@@ -1468,6 +1510,461 @@ def sharded_phase(card: str) -> dict:
     del model, gts
     torch.cuda.empty_cache()
     return rec
+
+
+# The share of a rank's gaussians that one strip may receive: the bench
+# scene falls about evenly on the 2 strips, and the gaussians that straddle
+# the boundary go to both, so the plan's default of 0.5 would drop rows.
+GAUSS_SEND_FRACTION = 0.6
+GAUSS_BG = (0.1, 0.2, 0.3)
+
+
+def _counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def _timed(fn, reps: int) -> list:
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def gauss_worker(out: str) -> int:
+    """One rank of the gauss phase (2 ranks on one card): the gauss-sharded
+    render (3 timed requests), one gauss-sharded training step under the
+    collective counter with its peak memory, 2 more timed steps, then the
+    depth-ring render and the backward of an MSE loss under the counter.
+    The launch counts are zeroed just before each and read just after.
+    Writes its results to out/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
+    from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
+    from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
+    from gaussiansplat_tpu_torch.parallel import (
+        init_gauss_sharded_state, make_depth_ring_render, make_gauss_mesh,
+        make_gauss_sharded_render, make_gauss_sharded_train_step,
+        plan_gauss_sharded, shard_model)
+    from gaussiansplat_tpu_torch.utils.comm_bytes import count_collectives
+
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    device = rank_init()
+    rank = dist.get_rank()
+    res = {"rank": rank}
+    try:
+        model, cams, gts = sharded_inputs(device)
+        mesh = make_gauss_mesh()
+        nd = mesh.tile
+        bg = torch.tensor(GAUSS_BG, device=device)
+        plan = plan_gauss_sharded(N_GAUSSIANS, nd, WIDTH, HEIGHT, 3,
+                                  RasterConfig(),
+                                  send_fraction=GAUSS_SEND_FRACTION)
+        sm = shard_model(model, mesh)
+        f = make_gauss_sharded_render(mesh, RasterConfig(), WIDTH, HEIGHT, 3,
+                                      send_cap=plan.send_cap)
+        box = {}
+        with torch.inference_mode():
+            for k in kernels:
+                k.launches = 0
+            ms = _timed(lambda: box.update(r=f(sm, cams[0], bg, with_aux=True)),
+                        3)
+            launches = _counts(kernels)
+        img, trans, aux = box["r"]
+        res["render"] = dict(
+            image=img.cpu(), trans=trans.cpu(), ms=ms, launches=launches,
+            **{k: int(aux[k]) for k in ("overflow", "pack_overflow",
+                                        "bin_overflow")})
+        del sm, img, trans, aux, box["r"]
+
+        cfg, tcfg = RasterConfig(**STEP_CFG), TrainConfig()
+        extent = float(scene_extent(model))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        state = init_gauss_sharded_state(model, mesh, tcfg, extent)
+        step = make_gauss_sharded_train_step(mesh, cfg, tcfg, WIDTH, HEIGHT,
+                                             3, send_cap=plan.send_cap,
+                                             return_grads=True)
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        with count_collectives() as counter:
+            first = _timed(lambda: box.update(s=step(state, cams[0], gts[0])), 1)
+        _, met = box["s"]
+        res["step"] = dict(
+            loss=float(met["loss"]), overflow=int(met["overflow"]),
+            grads={k: g.cpu() for k, g in met["grads"].items()},
+            launches=_counts(kernels), comm=counter.bytes(), first_ms=first,
+            peak=torch.cuda.max_memory_allocated() - base,
+            plan_total=plan.total_bytes, send_cap=plan.send_cap)
+        del met, box["s"]
+        res["step"]["ms"] = _timed(lambda: step(state, cams[0], gts[0]), 2)
+        del state, step
+        torch.cuda.empty_cache()
+
+        ring = make_depth_ring_render(mesh, cfg, WIDTH, HEIGHT, 3)
+        sm = shard_model(model, mesh)
+        for k in kernels:
+            k.launches = 0
+
+        def ring_step():
+            img, trans = ring(sm, cams[0], bg)
+            ((img - gts[0]) ** 2).mean().backward()
+            box.update(img=img.detach(), trans=trans)
+
+        with count_collectives() as counter:
+            first = _timed(ring_step, 1)
+        launches = _counts(kernels)
+        with torch.inference_mode():
+            ms = _timed(lambda: ring(sm, cams[0], bg), 2)
+        res["ring"] = dict(
+            image=box["img"].cpu(), trans=box["trans"].detach().cpu(),
+            grads={k: p.grad.cpu() for k, p in sm.trainable().items()},
+            launches=launches, comm=counter.bytes(), first_ms=first, ms=ms)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gauss2d_worker(out: str) -> int:
+    """One rank of the (data, gauss) = (2, 2) phase (4 ranks on one card):
+    one step of `make_gauss2d_train_step` over the two views (launch counts
+    zeroed just before and read just after), then one timed step. Writes
+    its results to out/rank<r>.pt."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
+    from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
+    from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
+    from gaussiansplat_tpu_torch.parallel import (
+        init_gauss_sharded_state, make_gauss2d_train_step, make_mesh2d,
+        plan_gauss_sharded, stack_cameras)
+
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    device = rank_init()
+    rank = dist.get_rank()
+    try:
+        model, cams, gts = sharded_inputs(device)
+        mesh = make_mesh2d(2, 2)
+        cfg, tcfg = RasterConfig(**STEP_CFG), TrainConfig()
+        plan = plan_gauss_sharded(N_GAUSSIANS, 2, WIDTH, HEIGHT, 3, cfg,
+                                  send_fraction=GAUSS_SEND_FRACTION)
+        state = init_gauss_sharded_state(model, mesh, tcfg,
+                                         float(scene_extent(model)))
+        step = make_gauss2d_train_step(mesh, cfg, tcfg, WIDTH, HEIGHT, 3,
+                                       send_cap=plan.send_cap,
+                                       return_grads=True)
+        stacked = stack_cameras(cams)
+        box = {}
+        for k in kernels:
+            k.launches = 0
+        first = _timed(lambda: box.update(s=step(state, stacked, gts)), 1)
+        launches = _counts(kernels)
+        _, met = box.pop("s")
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in state.model.trainable().values()]).cpu()
+        res = dict(rank=rank, loss=float(met["loss"]),
+                   overflow=int(met["overflow"]),
+                   digest=hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                   grads={k: g.cpu() for k, g in met["grads"].items()},
+                   launches=launches, first_ms=first)
+        del met
+        res["ms"] = _timed(lambda: step(state, stacked, gts), 1)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _grad_rel(got: dict, want: dict, r: int, nd: int, what: str) -> float:
+    """Gauss block r of nd against its slice of the single-device
+    gradient, relative to each group's largest entry of that slice."""
+    worst = 0.0
+    for name, g in got.items():
+        w = want[name]
+        n = w.shape[0] // nd
+        w = w[r * n:(r + 1) * n]
+        rel = float(((g.to(w.device) - w).abs()
+                     / w.abs().max().clamp(min=1e-30)).max())
+        worst = max(worst, rel)
+        if rel > 2e-3 or not bool(w.any()):
+            raise AssertionError(f"{what} block {r} gradient {name}: {rel:.3e}")
+    return worst
+
+
+def _single_grads(model, loss) -> tuple:
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.clone()
+                                  for k, p in model.trainable().items()}
+
+
+def gauss_phase(card: str) -> dict:
+    """Phase 12: the gaussian-axis paths, in gloo ranks of this script on
+    the one card (`--sharded-rank gauss`, 2 ranks; `--sharded-rank
+    gauss2d`, 4 ranks), each started from the environment through
+    `multihost.initialize`. Then, here, against the single-device paths on
+    the same 1080p/1M scene:
+      * the gauss-sharded render: the image budget against render(), no
+        row dropped by the exchange or by the strip binning;
+      * one gauss-sharded step: loss within 1e-5 relative, each rank's
+        gradient block within 2e-3 of each group's largest entry of its
+        slice, K1-K4 in every rank, the counter's all-to-all bytes equal to
+        `capacity.ici_bytes_per_step`, the step's peak memory beside the
+        plan's total;
+      * the depth ring: image and transmittance within 2e-4 of render(),
+        the MSE gradients within 2e-3, K1-K4 in every rank, the counter's
+        bytes equal to `capacity.ici_bytes_per_step_ring`;
+      * one (data, gauss) = (2, 2) step: the loss and gradients against the
+        single-device mean over the two views, the data replicas
+        bit-equal, K1-K4 in every rank.
+    The steps and the ring run with the tile early exit off (`STEP_CFG`),
+    as in the sharded phase."""
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.parallel.capacity import (
+        ici_bytes_per_step, ici_bytes_per_step_ring, plan_gauss_sharded)
+    from gaussiansplat_tpu_torch.render import render
+    from gaussiansplat_tpu_torch.train.loss import photometric_loss
+
+    ranks, wall_s = run_ranks("gauss", 2)
+    ranks2d, wall2d_s = run_ranks("gauss2d", 4)
+    device = torch.device("cuda")
+    cfg, tcfg = RasterConfig(**STEP_CFG), TrainConfig()
+    model, cams, gts = sharded_inputs(device)
+    bg = torch.tensor(GAUSS_BG, device=device)
+    plan = plan_gauss_sharded(N_GAUSSIANS, 2, WIDTH, HEIGHT, 3, RasterConfig(),
+                              send_fraction=GAUSS_SEND_FRACTION)
+    rec = {"wall_s": wall_s, "wall2d_s": wall2d_s,
+           "render_ms": [res["render"]["ms"] for res in ranks]}
+    with torch.inference_mode():
+        full = render(model, cams[0], RasterConfig(), background=bg)
+    for r, res in enumerate(ranks):
+        rr = res["render"]
+        drops = {k: rr[k] for k in ("overflow", "pack_overflow", "bin_overflow")}
+        if any(drops.values()) or min(rr["launches"][k]
+                                      for k in ("expand", "forward")) < 3:
+            raise AssertionError(f"rank {r} gauss render {drops} "
+                                 f"{rr['launches']}")
+        err = assert_budget(rr["image"].to(device), full.image,
+                            f"rank {r} gauss-sharded image")
+        assert_budget(rr["trans"].to(device), full.transmittance,
+                      f"rank {r} gauss-sharded transmittance")
+        print(f"gauss-sharded render (D=2) rank {r}: max|diff| {err:.3e} "
+              f"against render(); {drops}; ms "
+              f"{', '.join(f'{t:.3f}' for t in rr['ms'])}; launches "
+              f"{rr['launches']} | {card}")
+    del full
+
+    loss, want = _single_grads(model, photometric_loss(
+        render(model, cams[0], cfg).image, gts[0], tcfg.ssim_lambda))
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        st = res["step"]
+        worst = max(worst, _grad_rel(st["grads"], want, r, 2, "gauss step"))
+        if (abs(st["loss"] - loss) > 1e-5 * abs(loss) or st["overflow"]
+                or min(st["launches"].values()) < 1):
+            raise AssertionError(f"gauss step rank {r}: loss {st['loss']} vs "
+                                 f"{loss}, overflow {st['overflow']}, "
+                                 f"{st['launches']}")
+        if st["comm"].get("all-to-all") != ici_bytes_per_step(plan):
+            raise AssertionError(f"gauss step rank {r}: {st['comm']}, closed "
+                                 f"form all-to-all {ici_bytes_per_step(plan)}")
+        print(f"gauss-sharded step (D=2, send_cap {st['send_cap']}) rank {r}: "
+              f"loss {st['loss']:.7f} (single device {loss:.7f}); collective "
+              f"bytes {st['comm']} (closed form all-to-all "
+              f"{ici_bytes_per_step(plan)}); peak {st['peak']} B, the plan's "
+              f"total {st['plan_total']} B (x{st['peak'] / st['plan_total']:.3f});"
+              f" step ms {st['first_ms'][0]:.3f} (first), "
+              f"{', '.join(f'{t:.3f}' for t in st['ms'])}; launches "
+              f"{st['launches']} | {card}")
+    print(f"gauss-sharded step: gradients within {worst:.3e} of each group's "
+          f"largest entry")
+    rec["step"] = dict(grad_rel=worst, ms=[res["step"]["ms"] for res in ranks],
+                       peak=[res["step"]["peak"] for res in ranks],
+                       plan_total=plan.total_bytes,
+                       comm=ranks[0]["step"]["comm"])
+
+    single = render(model, cams[0], cfg, background=bg)
+    _, want = _single_grads(model, ((single.image - gts[0]) ** 2).mean())
+    closed = ici_bytes_per_step_ring(N_GAUSSIANS, 2, WIDTH, HEIGHT)
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        rg = res["ring"]
+        err = float((rg["image"].to(device) - single.image.detach()).abs().max())
+        terr = float((rg["trans"].to(device)
+                      - single.transmittance.detach()).abs().max())
+        worst = max(worst, _grad_rel(rg["grads"], want, r, 2, "depth ring"))
+        if max(err, terr) > 2e-4 or min(rg["launches"].values()) < 1:
+            raise AssertionError(f"depth ring rank {r}: image {err:.3e}, "
+                                 f"trans {terr:.3e}, {rg['launches']}")
+        if rg["comm"]["total"] != closed:
+            raise AssertionError(f"depth ring rank {r}: {rg['comm']}, closed "
+                                 f"form {closed}")
+        print(f"depth ring (D=2) rank {r}: image {err:.3e}, transmittance "
+              f"{terr:.3e} against render(); collective bytes {rg['comm']} "
+              f"(closed form {closed}); render + backward ms "
+              f"{rg['first_ms'][0]:.3f}, render ms "
+              f"{', '.join(f'{t:.3f}' for t in rg['ms'])}; launches "
+              f"{rg['launches']} | {card}")
+    print(f"depth ring: gradients within {worst:.3e} of each group's largest "
+          f"entry")
+    rec["ring"] = dict(grad_rel=worst, ms=[res["ring"]["ms"] for res in ranks],
+                       comm=ranks[0]["ring"]["comm"])
+    del single
+
+    loss, want = _single_grads(model, sum(
+        photometric_loss(render(model, c, cfg).image, g, tcfg.ssim_lambda)
+        for c, g in zip(cams, gts)) / 2)
+    worst = 0.0
+    for r, res in enumerate(ranks2d):
+        worst = max(worst, _grad_rel(res["grads"], want, r % 2, 2,
+                                     "(2, 2) step"))
+        if (abs(res["loss"] - loss) > 1e-5 * abs(loss) or res["overflow"]
+                or min(res["launches"].values()) < 1):
+            raise AssertionError(f"(2, 2) step rank {r}: loss {res['loss']} vs "
+                                 f"{loss}, overflow {res['overflow']}, "
+                                 f"{res['launches']}")
+        print(f"(data, gauss) = (2, 2) step rank {r}: loss {res['loss']:.7f} "
+              f"(single device {loss:.7f}); step ms {res['first_ms'][0]:.3f} "
+              f"(first), {res['ms'][0]:.3f}; launches {res['launches']} | {card}")
+    for g in range(2):       # ranks g and 2 + g hold gauss block g
+        if ranks2d[g]["digest"] != ranks2d[2 + g]["digest"]:
+            raise AssertionError(f"(2, 2) step: the replicas of gauss block {g}"
+                                 " differ")
+    print(f"(data, gauss) = (2, 2) step: gradients within {worst:.3e} of each "
+          f"group's largest entry, data replicas bit-equal")
+    rec["d2g2"] = dict(grad_rel=worst, ms=[res["ms"] for res in ranks2d])
+    rec["launches"] = {
+        "gauss_render": [res["render"]["launches"] for res in ranks],
+        "gauss_step": [res["step"]["launches"] for res in ranks],
+        "ring": [res["ring"]["launches"] for res in ranks],
+        "gauss2d_step": [res["launches"] for res in ranks2d]}
+    print(f"gauss phase: 2 + 4 gloo ranks on one card in {wall_s:.3f} + "
+          f"{wall2d_s:.3f} s (scene builds included) | {card}")
+    del model, gts, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+# The HBM phase's budget: out-of-memory probes, each in its own process.
+HBM_PROBES, HBM_PROBE_TIMEOUT_S, HBM_OOM_RC = 6, 150, 3
+
+
+def hbm_probe(n: int) -> int:
+    """One probe of the HBM phase (`--hbm-probe N`): a 1920x1080
+    gauss-sharded training step at N gaussians of the bench scene on one
+    rank (no process group), its exchange sized for every gaussian
+    (send_fraction 1, as `capacity.max_gaussians_per_chip` plans it).
+    Prints one JSON line with the peak device memory of the step and the
+    plan's total; exits HBM_OOM_RC when the card runs out of memory."""
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.parallel import (
+        init_gauss_sharded_state, make_gauss_mesh, make_gauss_sharded_train_step,
+        plan_gauss_sharded)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    try:
+        cfg, tcfg = RasterConfig(), TrainConfig()
+        plan = plan_gauss_sharded(n, 1, WIDTH, HEIGHT, 3, cfg, send_fraction=1.0)
+        mesh = make_gauss_mesh(1)
+        model = bench_scene(n, device, draw_on_device=True)
+        state = init_gauss_sharded_state(model, mesh, tcfg, 1.0)
+        del model
+        cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=FX,
+                      fy=FX, width=WIDTH, height=HEIGHT, device=device)
+        gt = torch.rand((HEIGHT, WIDTH, 3), device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+        step = make_gauss_sharded_train_step(mesh, cfg, tcfg, WIDTH, HEIGHT, 3,
+                                             send_cap=plan.send_cap)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, met = step(state, cam, gt)
+        torch.cuda.synchronize()
+        loss = float(met["loss"])
+        if not math.isfinite(loss) or int(met["overflow"]):
+            raise AssertionError(f"probe at {n}: loss {loss}, overflow "
+                                 f"{int(met['overflow'])}")
+        print(json.dumps({"n": n, "peak": torch.cuda.max_memory_allocated(),
+                          "plan_total": plan.total_bytes, "loss": loss}))
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"out of memory at {n}: {str(e)[:300]}")
+        return HBM_OOM_RC
+    return 0
+
+
+def hbm_phase(card: str) -> dict:
+    """Phase 13: the single-card memory ceiling of a 1080p gauss-sharded
+    training step, by out-of-memory bisection (`capacity.bisect_ceiling`)
+    over subprocess probes (`hbm_probe`), seeded by the closed form's
+    ceiling at the card's nominal 80 GiB. A probe that fails otherwise or
+    times out is inconclusive and moves neither end. Prints the nominal and
+    the measured ceiling, the peak memory of the largest step that fit (the
+    budget) and its ratio to the plan's total (the slack), beside the
+    budget and slack written in `capacity.py`; fails unless they agree
+    within 10% (capacity.py is then out of date)."""
+    from gaussiansplat_tpu_torch.parallel import capacity
+
+    seed = capacity.max_gaussians_per_chip(
+        WIDTH, HEIGHT, 3, hbm_bytes=capacity.HBM_NOMINAL_BYTES)
+    fits = {}
+
+    def probe(n: int):
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--hbm-probe",
+                 str(n)], capture_output=True, text=True,
+                timeout=HBM_PROBE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            print(f"HBM probe {n}: inconclusive (timed out after "
+                  f"{HBM_PROBE_TIMEOUT_S} s)")
+            return None
+        dt = time.perf_counter() - t0
+        if r.returncode == 0:
+            fits[n] = json.loads(r.stdout.strip().splitlines()[-1])
+            print(f"HBM probe {n}: fit, peak {fits[n]['peak']} B ({dt:.1f} s)")
+            return True
+        if r.returncode == HBM_OOM_RC:
+            print(f"HBM probe {n}: out of memory ({dt:.1f} s)")
+            return False
+        print(f"HBM probe {n}: inconclusive (exit {r.returncode}, {dt:.1f} s): "
+              f"{(r.stdout + r.stderr)[-600:]}")
+        return None
+
+    out = capacity.bisect_ceiling(probe, seed, HBM_PROBES, resolution=0.05)
+    if out["fit"] is None:
+        raise AssertionError(f"HBM phase: no probe fit {out['probes']}")
+    top = fits[out["fit"]]
+    budget, slack = top["peak"], top["peak"] / top["plan_total"]
+    print(f"HBM ceiling, 1920x1080 gauss-sharded step on one rank: nominal "
+          f"{capacity.HBM_NOMINAL_BYTES} B -> closed-form ceiling {seed} "
+          f"gaussians; measured: {out['fit']} fit, "
+          f"{out['oom'] if out['oom'] is not None else 'none'} ran out; budget "
+          f"(peak at {out['fit']}) {budget} B, slack x{slack:.4f} the plan; "
+          f"capacity.py: {capacity.HBM_EFFECTIVE_BYTES} B, x{capacity.HBM_SLACK}"
+          f" ({capacity.HBM_CARD}) | {card}")
+    for what, got, have in (("budget", budget, capacity.HBM_EFFECTIVE_BYTES),
+                            ("slack", slack, capacity.HBM_SLACK)):
+        if abs(got - have) > 0.1 * got:
+            raise AssertionError(f"capacity.py's HBM {what} {have} is not the "
+                                 f"measured {got}")
+    return dict(seed=seed, fit=out["fit"], oom=out["oom"], budget=budget,
+                slack=slack, probes=out["probes"])
 
 
 def main() -> int:
@@ -1573,6 +2070,13 @@ def main() -> int:
     # its own counts around its render and each step)
     sharded = sharded_phase(card)
 
+    # 12. gaussian-axis paths, 2 and 4 gloo ranks on this card (each rank
+    # zeroes and reads its own counts around each of its paths)
+    gauss = gauss_phase(card)
+
+    # 13. the single-card memory ceiling, by out-of-memory probes
+    hbm_phase(card)
+
     record = {"kernels": [
         {"name": "expand_pairs", "route": "cuda",
          "source": "gaussiansplat_tpu_torch/csrc/expand.cu",
@@ -1615,6 +2119,8 @@ def main() -> int:
         k["sharded_step_launches"] = [
             r[name] for key in ("step_d1t2", "step_d2t1")
             for r in sharded[key]["launches"]]
+        for key, per_rank in gauss["launches"].items():
+            k[f"{key}_launches"] = [r.get(name, 0) for r in per_rank]
     for label, g in giant.items():
         tag = "int64_" + label.replace("/", "_")
         record["kernels"][0].update({
@@ -1631,14 +2137,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if "--sharded-rank" in sys.argv:
+    if "--sharded-rank" in sys.argv or "--hbm-probe" in sys.argv:
         import argparse
 
         ap = argparse.ArgumentParser()
-        ap.add_argument("--sharded-rank", type=int, required=True)
-        ap.add_argument("--world", type=int, required=True)
-        ap.add_argument("--store", required=True)
-        ap.add_argument("--out", required=True)
+        ap.add_argument("--sharded-rank", choices=("tile", "gauss", "gauss2d"))
+        ap.add_argument("--out")
+        ap.add_argument("--hbm-probe", type=int)
         a = ap.parse_args()
-        sys.exit(sharded_worker(a.sharded_rank, a.world, a.store, a.out))
+        if a.hbm_probe:
+            sys.exit(hbm_probe(a.hbm_probe))
+        sys.exit({"tile": tile_worker, "gauss": gauss_worker,
+                  "gauss2d": gauss2d_worker}[a.sharded_rank](a.out))
     sys.exit(main())

@@ -91,12 +91,14 @@ class _GatherStrips(torch.autograd.Function):
         return g[r0:r0 + ctx.rows], None, None
 
 
-def check_strips(cfg: RasterConfig, height: int, ntile: int) -> int:
-    """Tile rows per strip; raises unless the tile rows divide evenly."""
+def check_strips(cfg: RasterConfig, height: int, ntile: int,
+                 axis: str = TILE_AXIS) -> int:
+    """Tile rows per strip of the `axis` mesh axis; raises unless the tile
+    rows divide evenly."""
     _, tiles_y = tile_grid(1, height, cfg.tile_size)
     if tiles_y % ntile != 0:
         raise ValueError(
-            f"tile rows ({tiles_y}) must divide evenly across the tile axis "
+            f"tile rows ({tiles_y}) must divide evenly across the {axis} axis "
             f"({ntile}); pad the image height to a multiple of "
             f"{cfg.tile_size * ntile} pixels")
     return tiles_y // ntile

@@ -6,29 +6,18 @@ tests/test_parallel.py: the tile-sharded render (tile 2 and 4), uneven rows
 rejected, the (data=2, tile=2) L1 step, the halo-SSIM objective (tile 2
 and 4), and a (data=2, tile=2) run whose replicas stay bit-equal.
 
-This file is also the ranks' entry point:
-
-    python tests/test_torch_parallel.py --worker JOB --rank R --world N \
-        --init file:///path/store --inputs in.npz --out DIR
-
-The ranks import neither JAX nor the reference package: the test process
-writes every input as numpy to `in.npz`, and each rank writes its results
-to DIR/JOB_rank<R>.npz. They rendezvous through a FileStore (no ports),
-run one thread each and wait at most `TIMEOUT_S` on any collective.
+This file is also the ranks' entry point (tests/gloo_ranks.py): the ranks
+import neither JAX nor the reference package.
 """
 
-import argparse
-import os
-import subprocess
 import sys
-from datetime import timedelta
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT_S = 90
+from gloo_ranks import close_scaled as _close_scaled
+from gloo_ranks import run_jobs, worker_main
+
 W = 64
 PARAMS = ("means", "quats", "log_scales", "logit_opacities", "sh_dc", "sh_rest")
 # The cases each job runs, in order (one process group per job).
@@ -116,41 +105,8 @@ def _run_case(case, inp):
     return out
 
 
-def worker_main(argv) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--worker", required=True)
-    ap.add_argument("--rank", type=int, required=True)
-    ap.add_argument("--world", type=int, required=True)
-    ap.add_argument("--init", required=True)
-    ap.add_argument("--inputs", required=True)
-    ap.add_argument("--out", required=True)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-
-    dist.init_process_group("gloo", init_method=args.init, rank=args.rank,
-                            world_size=args.world,
-                            timeout=timedelta(seconds=TIMEOUT_S))
-    try:
-        inp = dict(np.load(args.inputs))
-        res = {}
-        for case in JOBS[args.world]:
-            for k, v in _run_case(case, inp).items():
-                res[f"{case}/{k}"] = v
-        bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "gaussiansplat_tpu")]
-        if bad:
-            raise AssertionError(f"a rank imported {bad[:5]}")
-        np.savez(os.path.join(args.out, f"{args.worker}_rank{args.rank}.npz"),
-                 **res)
-    finally:
-        dist.destroy_process_group()
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(worker_main(sys.argv[1:]))
+    sys.exit(worker_main(sys.argv[1:], JOBS, _run_case))
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +155,7 @@ def _cases():
     return cases
 
 
-def _write_inputs(path, cases):
+def _arrays(cases):
     arrays = {}
     for case, (m, cams, gts) in cases.items():
         for k, v in m.trainable().items():
@@ -212,64 +168,16 @@ def _write_inputs(path, cases):
             arrays[f"{case}/cam{i}/wh"] = np.array([c.width, c.height])
         if gts is not None:
             arrays[f"{case}/gts"] = gts
-    np.savez(path, **arrays)
-
-
-def _launch(world, tmp, inputs):
-    """Run job `world` in `world` processes; the results of each rank."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("PYTHONPATH", "XLA_FLAGS")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
-    store = tmp / f"store{world}"
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--worker",
-         f"w{world}", "--rank", str(r), "--world", str(world), "--init",
-         f"file://{store}", "--inputs", str(inputs), "--out", str(tmp)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    return procs
-
-
-def _wait(procs):
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=4 * TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return arrays
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both jobs (2 and 4 ranks, started together) and the inputs they
     were given."""
-    tmp = tmp_path_factory.mktemp("gloo")
     cases = _cases()
-    inputs = tmp / "in.npz"
-    _write_inputs(inputs, cases)
-    procs = {w: _launch(w, tmp, inputs) for w in JOBS}
-    for w in JOBS:
-        _wait(procs[w])
-    results = {}
-    for w, names in JOBS.items():
-        ranks = [dict(np.load(tmp / f"w{w}_rank{r}.npz")) for r in range(w)]
-        for case in names:
-            results[case] = [{k[len(case) + 1:]: v for k, v in rk.items()
-                              if k.startswith(case + "/")} for rk in ranks]
-    return cases, results
-
-
-def _close_scaled(got, want, atol, what):
-    for k in want:
-        w = np.asarray(want[k])
-        scale = np.abs(w).max() + 1e-8
-        np.testing.assert_allclose(np.asarray(got[k]) / scale, w / scale,
-                                   atol=atol, err_msg=f"{what}: {k}")
+    return cases, run_jobs(__file__, JOBS, tmp_path_factory.mktemp("gloo"),
+                           _arrays(cases))
 
 
 def _jax_cfg():

@@ -172,6 +172,11 @@ def test_no_file_imports_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "compare_forward_builds.py"]
     assert len(files) > 15
+    scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    assert {f"parallel/{m}.py" for m in ("gauss_shard", "gauss_train",
+                                         "depth_ring", "gauss2d", "multihost",
+                                         "capacity")} | {"utils/comm_bytes.py"} \
+        <= scanned
     for f in files:
         bad = {"jax", "jaxlib", "flax", "gaussiansplat_tpu"} & set(
             _imported_roots(f))
