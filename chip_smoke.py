@@ -84,6 +84,30 @@
    out-of-memory bisection over at most HBM_PROBES subprocess probes
    (`--hbm-probe N`), seeded by the closed form at the nominal 80 GiB;
    the measured budget and slack must agree with `parallel/capacity.py`.
+14. Timing variants (ops/kernels/ablate.py): phase 3's 1080p/1M inputs
+   again (payload, tile starts, K1's block, the seeded cotangent, K2's
+   rows, K3's pre-sort rows). The variants of K1 (dmaonly, noacc,
+   nowrite), K2 (dmaonly, nograd, nogeom, nodirect, nowrite) and K3
+   (dmaonly, stacked) built at once; each build's ptxas lines, registers,
+   shared memory and blocks per SM (a variant whose blocks per SM differ
+   from production's is flagged: its time prices occupancy too), and its
+   SASS by opcode (`cuobjdump -sass`), which must still hold the work the
+   variant keeps (`kept_work`); a variant that spills is flagged too. The
+   K1 and K2 variants that fit more blocks than production are built again
+   pinned to production's count (`ablate.variant_kernel(blocks=)`; the
+   occupancy API must report it), and production with them: the padding
+   that pins them also shrinks the SM's L1, so they are compared with
+   production pinned the same way (which must give production's bits). Each variant launched once against
+   production's output on the same inputs (`ablate.contract`: kept rows
+   within 1e-6 of each row's largest entry, bit for bit for K1 noacc's
+   logT and stop rows and for K3 stacked; dropped rows at most 1e-20; K1
+   dmaonly's stop row counting every chunk; the nowrite checksums within
+   1e-5 of the tile's sum of magnitudes), on its own launch counter. Then
+   production, the variants and the pinned builds timed in turns by CUDA
+   events, and `ablate.decompose`'s components printed, for the free
+   builds and among the pinned ones; the JSON record's K1, K2 and K3
+   entries carry `variants_ms`, `derived_ms`, `variant_flags` and, where
+   builds were pinned, `pinned_ms` and `pinned_derived_ms`.
 The serve phase also checks native IO: the CLI read the exported 1M PLY
 with the native parser; both parsers' times are printed.
 The launch counts are zeroed just before the serve, the train, the loop,
@@ -1967,6 +1991,268 @@ def hbm_phase(card: str) -> dict:
                 slack=slack, probes=out["probes"])
 
 
+# Phase 14's SASS summary: the opcodes printed for each build.
+SASS_KEYS = ("total", "MUFU", "MUFU.EX2", "MUFU.LG2", "MUFU.RCP", "SHFL",
+             "LDG.128", "LDG", "STG", "LDS", "STS", "BAR")
+
+
+def kept_work(kernel: str, variant: str, counts: dict) -> tuple:
+    """Whether the SASS of a variant still holds the work it keeps, against
+    production's (`counts[kernel][""]`): every variant but dmaonly keeps the
+    gates, the compositing or rewind exponentials and the log1p (equal
+    MUFU.EX2 and MUFU.LG2 counts); dmaonly keeps the 16-byte row loads (at
+    least production's LDG.128: it loads all three 16-byte quarters of a
+    row where production loads the third in narrower pieces); K2 nogeom
+    keeps dalpha's divide (more MUFU.RCP than nograd, which drops it)."""
+    c, full = counts[kernel][variant], counts[kernel][""]
+    if variant == "stacked":
+        return True, "the production library"
+    if variant == "dmaonly":
+        ok = c.get("LDG.128", 0) >= full.get("LDG.128", 0) > 0
+        return ok, (f"16-byte loads {c.get('LDG.128', 0)} (production "
+                    f"{full.get('LDG.128', 0)})")
+    ex, lg = c.get("MUFU.EX2", 0), c.get("MUFU.LG2", 0)
+    ok = ex == full.get("MUFU.EX2", 0) and lg == full.get("MUFU.LG2", 0) and ex > 0
+    text = (f"MUFU.EX2 {ex}, MUFU.LG2 {lg} (production "
+            f"{full.get('MUFU.EX2', 0)}, {full.get('MUFU.LG2', 0)})")
+    if (kernel, variant) == ("backward", "nogeom"):
+        rcp, rcp_ng = c.get("MUFU.RCP", 0), counts[kernel]["nograd"].get("MUFU.RCP", 0)
+        ok = ok and rcp > rcp_ng
+        text += f", MUFU.RCP {rcp} against nograd's {rcp_ng}"
+    return ok, text
+
+
+def launch_build(module, attr: str, build, call):
+    """`call()` with `module.<attr>` (a wrapper's production kernel) swapped
+    for `build`, so the wrapper launches that build (a pinned variant)."""
+    own = getattr(module, attr)
+    setattr(module, attr, build)
+    try:
+        return call()
+    finally:
+        setattr(module, attr, own)
+
+
+def ablate_phase(card: str) -> dict:
+    """Phase 14 (module docstring): the timing variants of K1, K2 and K3 on
+    phase 3's 1080p/1M inputs. Returns each kernel's `variants_ms`,
+    `derived_ms` and `variant_flags`, and for K1 and K2 the times of the
+    builds pinned to production's blocks per SM, production among them
+    (`pinned_ms`), and the components those price (`pinned_derived_ms`)."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.binning import bin_gaussians
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.ops.kernels import ablate
+    from gaussiansplat_tpu_torch.ops.kernels import backward as backward_mod
+    from gaussiansplat_tpu_torch.ops.kernels import forward as forward_mod
+    from gaussiansplat_tpu_torch.ops.kernels.backward import (
+        BACKWARD,
+        rasterize_backward_cuda,
+    )
+    from gaussiansplat_tpu_torch.ops.kernels.build import (
+        blocks_per_sm,
+        build_all,
+        ptxas_lines,
+        ptxas_usage,
+        sass_counts,
+    )
+    from gaussiansplat_tpu_torch.ops.kernels.common import LANE_BYTES, raster_warps
+    from gaussiansplat_tpu_torch.ops.kernels.forward import (
+        FORWARD,
+        rasterize_forward_cuda,
+    )
+    from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
+        SEGREDUCE,
+        segment_reduce_pairs_cuda,
+    )
+    from gaussiansplat_tpu_torch.ops.projection import make_payload
+
+    device = torch.device("cuda")
+    cfg = RasterConfig()
+    cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=FX, fy=FX,
+                  width=WIDTH, height=HEIGHT, device=device)
+    model = bench_scene(N_GAUSSIANS, device)
+    with torch.no_grad():
+        proj = project(model, cam, cfg)
+        b = bin_gaussians(proj, WIDTH, HEIGHT, cfg, impl="cuda")
+        sp = b.gather_payload(make_payload(proj))
+        ts = b.tile_starts
+        fwd = rasterize_forward_cuda(sp, ts, WIDTH, HEIGHT, cfg)
+        gen = torch.Generator(device=device).manual_seed(7)
+        cot = torch.randn(fwd.shape, generator=gen, device=device)
+        cot[:, 4:] = 0.0
+        grad = rasterize_backward_cuda(sp, ts, cot, fwd, WIDTH, HEIGHT, cfg)
+        valid = torch.arange(grad.shape[0], device=device) < int(b.num_pairs)
+        rows = presort_rows(b, grad.masked_fill(~valid[:, None], 0.0))
+        seg, nrank = b.seg_offsets, b.depth_order.shape[0]
+        red = segment_reduce_pairs_cuda(rows, seg, nrank)
+    del model, proj
+    torch.cuda.synchronize()
+
+    bases = {"forward": FORWARD, "backward": BACKWARD, "segreduce": SEGREDUCE}
+    modules = {"forward": (forward_mod, "FORWARD"),
+               "backward": (backward_mod, "BACKWARD")}
+    builds = {k: {"": base, **ablate.variant_kernels(k, base)}
+              for k, base in bases.items()}
+    t0 = time.perf_counter()
+    build_all([k for d in builds.values() for k in d.values()])
+    print(f"built {sum(len(d) - 1 for d in builds.values())} variant kernels "
+          f"in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel; "
+          "stacked is the production library)")
+
+    wx, wy = raster_warps(cfg.tile_size)
+    launch = {"forward": (32 * wx * wy, cfg.chunk_size * LANE_BYTES),
+              "backward": (32 * wx * wy, cfg.chunk_size * LANE_BYTES
+                           + wx * wy * 128 * 11 * 4),
+              "segreduce": (256, 0)}
+
+    def describe(kernel, v, k, occ0):
+        """Print a build's ptxas figures and SASS; its blocks per SM."""
+        threads, dyn = launch[kernel]
+        use = ptxas_usage(k.build_log)
+        occ = blocks_per_sm(use["registers"], threads, use["smem"] + dyn)
+        c = sass_counts(k.library_path())
+        flag = "" if occ0 is None or occ == occ0 else (
+            f"  OCCUPANCY DIFFERS from production's {occ0} blocks/SM: "
+            "its time prices occupancy too")
+        if v and use["spill_stores"] + use["spill_loads"]:
+            flag += "  SPILLS: its time prices the spills too"
+        print(f"  {kernel} {v or 'production'}: {use['registers']} "
+              f"registers, {use['smem']} B static + {dyn} B dynamic shared, "
+              f"spills {use['spill_stores']}/{use['spill_loads']} B -> {occ} "
+              f"blocks/SM{flag}")
+        for line in ptxas_lines(k.build_log):
+            print(f"    {line}")
+        print("    SASS " + ", ".join(f"{key} {c.get(key, 0)}"
+                                      for key in SASS_KEYS))
+        return occ, c, flag.strip()
+
+    counts, failures, flags, occs, notes = {}, [], {}, {}, {}
+    for kernel, d in builds.items():
+        counts[kernel] = {}
+        occ0 = None
+        for v, k in d.items():
+            occs[(kernel, v)], counts[kernel][v], flags[(kernel, v)] = describe(
+                kernel, v, k, occ0)
+            occ0 = occs[(kernel, "")]
+        for v in ablate.VARIANTS[kernel]:
+            ok, text = kept_work(kernel, v, counts)
+            print(f"  {kernel} {v} keeps its work in SASS: {ok} ({text})")
+            if not ok:
+                failures.append(f"{kernel} {v}: SASS {text}")
+
+    # Builds of the variants that fit more blocks than production, pinned
+    # to production's count (the launcher pads their shared memory), and
+    # production pinned the same way: the padding also takes L1 from the
+    # SM, so the pinned variants are compared with it.
+    pinned = {}
+    for kernel in ablate.PINNABLE:
+        more = [v for v in ablate.VARIANTS[kernel]
+                if occs[(kernel, v)] > occs[(kernel, "")]]
+        for v in ([""] + more if more else []):
+            pinned[(kernel, v)] = ablate.variant_kernel(
+                kernel, bases[kernel], v, blocks=occs[(kernel, "")])
+    t0 = time.perf_counter()
+    build_all(pinned.values())
+    print(f"built {len(pinned)} builds pinned to production's blocks per SM "
+          f"in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{kk} {v or 'production'}" for kk, v in pinned))
+
+    calls = {
+        "forward": lambda v: rasterize_forward_cuda(sp, ts, WIDTH, HEIGHT, cfg,
+                                                    ablate=v),
+        "backward": lambda v: rasterize_backward_cuda(sp, ts, cot, fwd, WIDTH,
+                                                      HEIGHT, cfg, ablate=v),
+        "segreduce": lambda v: segment_reduce_pairs_cuda(rows, seg, nrank,
+                                                         ablate=v),
+    }
+
+    def run(kernel, v, pin):
+        """One launch of variant v (pinned: its pinned build)."""
+        if not pin:
+            return calls[kernel](v)
+        return launch_build(*modules[kernel], pinned[(kernel, v)],
+                            lambda: calls[kernel](""))
+
+    def label(v, pin):
+        return (v or "full") + (" pinned" if pin else "")
+
+    full = {"forward": fwd, "backward": grad, "segreduce": red}
+    out = {}
+    with torch.no_grad():
+        for kernel in calls:
+            names = list(ablate.VARIANTS[kernel])
+            pins = [v for v in ["", *names] if (kernel, v) in pinned]
+            for v, pin in [(v, False) for v in names] + [(v, True) for v in pins]:
+                k = pinned[(kernel, v)] if pin else builds[kernel][v]
+                before = {id(x): x.launches for x in
+                          (*builds[kernel].values(), *pinned.values())}
+                got = run(kernel, v, pin)
+                torch.cuda.synchronize()
+                moved = [x for x in (*builds[kernel].values(), *pinned.values())
+                         if x.launches != before[id(x)]]
+                if v:
+                    r = ablate.contract(kernel, v, got, full[kernel], ts,
+                                        cfg.chunk_size)
+                else:   # pinned production: production's bits
+                    n = int(ts[-1]) if kernel == "backward" else got.shape[0]
+                    same = torch.equal(got[:n].view(torch.int32),
+                                       full[kernel][:n].view(torch.int32))
+                    r = dict(ok=same, text=f"production's bits: {same}")
+                ok = r["ok"] and moved == [k]
+                name = label(v, pin)
+                if pin:
+                    n_blocks = ablate.pinned_blocks_per_sm(k)
+                    ok = ok and n_blocks == occs[(kernel, "")]
+                    name += f" ({n_blocks} blocks/SM by the occupancy API)"
+                elif "chunks_streamed" in r:
+                    notes[kernel] = (f"; chunks: dmaonly streamed "
+                                     f"{r['chunks_streamed']}, production "
+                                     f"composited {r['chunks_composited']}")
+                print(f"  {kernel} {name}: contract "
+                      f"{'met' if ok else 'FAILED'}: {r['text']}; launched on "
+                      f"its own counter: {moved == [k]}")
+                if not ok:
+                    failures.append(f"{kernel} {name}: {r['text']}")
+                del got
+            keys = [("", False), *((v, False) for v in names),
+                    *((v, True) for v in pins)]
+            order = [*keys, *reversed(keys)]
+            reps, warmup = (20, 3) if kernel == "segreduce" else (10, 2)
+            readings = {}
+            for v, pin in order:
+                readings.setdefault((v, pin), []).append(cuda_ms(
+                    lambda v=v, pin=pin: run(kernel, v, pin), reps=reps,
+                    warmup=warmup))
+            mean = {key: float(np.mean(t)) for key, t in readings.items()}
+            times = {f"{v or 'full'}_ms": mean[(v, False)] for v in ["", *names]}
+            derived = ablate.decompose(times, kernel)
+            out[kernel] = dict(variants_ms=times, derived_ms=derived,
+                               variant_flags={v: flags[(kernel, v)] for v in names
+                                              if flags[(kernel, v)]})
+            print(f"{kernel} variants ({reps} launches each, CUDA events, two "
+                  "readings in turns: production, the variants, the pinned "
+                  "builds, then the same reversed): " + ", ".join(
+                      f"{label(*key)} {mean[key]:.4f} ms ("
+                      + ", ".join(f"{x:.4f}" for x in t) + ")"
+                      for key, t in readings.items()) + f" | {card}")
+            print(f"{kernel} components: " + ", ".join(
+                f"{k} {x:.4f}" for k, x in derived.items())
+                + notes.get(kernel, "") + f" | {card}")
+            if pins:
+                pinned_ms = {f"{v or 'full'}_ms": mean[(v, True)] for v in pins}
+                pinned_derived = ablate.decompose(pinned_ms, kernel)
+                out[kernel].update(pinned_ms=pinned_ms,
+                                   pinned_derived_ms=pinned_derived)
+                print(f"{kernel} components among the builds pinned to "
+                      f"production's {occs[(kernel, '')]} blocks/SM ("
+                      + ", ".join(label(v, True) for v in pins) + "): "
+                      + ", ".join(f"{k} {x:.4f}" for k, x in
+                                  pinned_derived.items()) + f" | {card}")
+    if failures:
+        raise AssertionError("timing variants: " + "; ".join(failures))
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2077,6 +2363,10 @@ def main() -> int:
     # 13. the single-card memory ceiling, by out-of-memory probes
     hbm_phase(card)
 
+    # 14. the timing variants of K1, K2 and K3 and their cost decomposition
+    ablation = ablate_phase(card)
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         {"name": "expand_pairs", "route": "cuda",
          "source": "gaussiansplat_tpu_torch/csrc/expand.cu",
@@ -2121,6 +2411,9 @@ def main() -> int:
             for r in sharded[key]["launches"]]
         for key, per_rank in gauss["launches"].items():
             k[f"{key}_launches"] = [r.get(name, 0) for r in per_rank]
+    for k, name in zip(record["kernels"][1:], ("forward", "backward",
+                                                "segreduce")):
+        k.update(ablation[name])
     for label, g in giant.items():
         tag = "int64_" + label.replace("/", "_")
         record["kernels"][0].update({

@@ -55,6 +55,22 @@
 // would not (raster_common.cuh). Staging is not overlapped with compute: a
 // tile composites ~2 chunks on average at 1080p, each for tens of
 // microseconds, against a copy of ~1 us that the SM's other blocks cover.
+//
+// Timing variants (ops/kernels/ablate.py), one -D flag each, the TPU
+// kernel's `ablate=` on this kernel's structure; with none defined this
+// source is the production kernel. Each keeps a 1e-30-scaled fold of the
+// work it keeps in an output, so that nvcc does not delete that work.
+//   GS_ABLATE_DMAONLY: each chunk's rows staged as raw copies (no extent),
+//     no cull, gates or compositing; logT stays 0, so every chunk is
+//     streamed (the early exit never fires). The R row holds 1e-30 x a
+//     staged value a chunk (at each thread's first pixel), G-depth 0, the
+//     stop row the chunk count.
+//   GS_ABLATE_NOACC: the cull, gates, alpha, w and the logT sum; no channel
+//     accumulation: the weight-sum row holds 1e-30 x its value, R, G, B and
+//     depth 0; logT and the stop row are production's bits.
+//   GS_ABLATE_NOWRITE: everything, but the 8-row store replaced by one
+//     checksum a tile in out[t][0][0], the sum of the tile's 8 rows over
+//     its pixels; every other entry is left unwritten.
 
 #include <cuda_runtime.h>
 
@@ -101,10 +117,20 @@ __global__ void __launch_bounds__(256, 3) forward_kernel(
     const int j1 = min(end - cbase, cs);
     __syncthreads();  // every thread is done with the previous chunk
     for (int j = j0 + tid; j < j1; j += blockDim.x) {
+#if defined(GS_ABLATE_DMAONLY)
+      gs::stage_raw(payload + static_cast<size_t>(cbase + j) * kNch, lanes + j);
+#else
       gs::stage_pair(payload + static_cast<size_t>(cbase + j) * kNch, ox, oy,
                      alpha_min, sigma_sq, lanes + j);
+#endif
     }
     __syncthreads();
+#if defined(GS_ABLATE_DMAONLY)
+    (void)ox;
+    (void)oy;
+    // An empty segment's one chunk stages nothing.
+    if (j0 < j1) acc_r[0] = __fadd_rn(acc_r[0], __fmul_rn(lanes[j0].cull.x, 1e-30f));
+#else
     for (int jb = j0; jb < j1; jb += 32) {
       // The warp tests 32 pairs at once, one per lane, then walks the kept
       // ones in depth order.
@@ -114,7 +140,9 @@ __global__ void __launch_bounds__(256, 3) forward_kernel(
         todo &= todo - 1;
         const float4 cull = lanes[j].cull;
         const float4 conic = lanes[j].conic;
+#if !defined(GS_ABLATE_NOACC)
         const float4 col = lanes[j].color;
+#endif
         float dx[2], dy[2], q[kQuads], a_raw[kQuads];
         gs::quad_q(pix, cull, conic, dx, dy, q);
         bool live[kQuads], any = false;
@@ -133,15 +161,20 @@ __global__ void __launch_bounds__(256, 3) forward_kernel(
           const float alpha = fminf(a_raw[k], alpha_max);
           const float w = __fmul_rn(alpha, expf(log_t[k]));
           const float ell = log1pf(-alpha);
+#if defined(GS_ABLATE_NOACC)
+          acc_w[k] = live[k] ? __fadd_rn(acc_w[k], __fmul_rn(w, 1e-30f)) : acc_w[k];
+#else
           acc_r[k] = live[k] ? __fadd_rn(acc_r[k], __fmul_rn(w, col.x)) : acc_r[k];
           acc_g[k] = live[k] ? __fadd_rn(acc_g[k], __fmul_rn(w, col.y)) : acc_g[k];
           acc_b[k] = live[k] ? __fadd_rn(acc_b[k], __fmul_rn(w, col.z)) : acc_b[k];
           acc_w[k] = live[k] ? __fadd_rn(acc_w[k], w) : acc_w[k];
           acc_d[k] = live[k] ? __fadd_rn(acc_d[k], __fmul_rn(w, col.w)) : acc_d[k];
+#endif
           log_t[k] = live[k] ? __fadd_rn(log_t[k], ell) : log_t[k];
         }
       }
     }
+#endif
     ++ci;
     bool open = false;
 #pragma unroll
@@ -151,6 +184,18 @@ __global__ void __launch_bounds__(256, 3) forward_kernel(
     alive = __syncthreads_or(open) != 0;
   }
 
+#if defined(GS_ABLATE_NOWRITE)
+  // One checksum a tile; the barrier above ended every read of the lanes.
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    if (!(pix.valid >> k & 1u)) continue;
+    sum += acc_r[k] + acc_g[k] + acc_b[k] + log_t[k] + acc_w[k] + acc_d[k] +
+           static_cast<float>(ci);
+  }
+  sum = gs::block_sum(sum, reinterpret_cast<float*>(lanes));
+  if (tid == 0) out[static_cast<size_t>(t) * kNout * px] = sum;
+#else
 #pragma unroll
   for (int k = 0; k < kQuads; ++k) {
     if (!(pix.valid >> k & 1u)) continue;
@@ -165,6 +210,7 @@ __global__ void __launch_bounds__(256, 3) forward_kernel(
     o[6 * px] = static_cast<float>(ci);
     o[7 * px] = 0.f;
   }
+#endif
 }
 
 }  // namespace
@@ -176,17 +222,37 @@ extern "C" int gs_rasterize_forward(
     void* out, void* stream) {
   const int threads = gs::block_threads(tile_size);
   const size_t smem = static_cast<size_t>(chunk_size) * sizeof(Lane);
+#if defined(GS_ABLATE_BLOCKS)
+  // A timing build pinned to production's blocks per SM (raster_common.cuh).
+  const size_t smem_run =
+      gs::pinned_smem(forward_kernel, threads, smem, GS_ABLATE_BLOCKS);
+  cudaError_t e = cudaFuncSetAttribute(
+      forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_run));
+  if (e != cudaSuccess) return static_cast<int>(e);
+#else
   // Above 48 KB a block's shared memory is dynamic only after this opt-in.
   cudaError_t e = cudaFuncSetAttribute(
       forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
+#endif
+#if defined(GS_ABLATE_BLOCKS)
+  forward_kernel<<<num_tiles, threads, smem_run,
+                   static_cast<cudaStream_t>(stream)>>>(
+#else
   forward_kernel<<<num_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+#endif
       static_cast<const float*>(payload), static_cast<const int*>(tile_starts),
       tile_size, chunk_size, tiles_x, tile_row0, alpha_min, alpha_max,
       sigma_sq, log_eps, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+#if defined(GS_ABLATE_BLOCKS)
+// The blocks per SM of the last launch's configuration, by the occupancy API.
+extern "C" int gs_ablate_blocks_per_sm() { return gs::last_blocks(); }
+#endif
 
 extern "C" const char* gs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

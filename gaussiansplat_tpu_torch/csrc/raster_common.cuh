@@ -149,6 +149,84 @@ __device__ __forceinline__ void stage_pair(const float* __restrict__ row,
   lane->color = make_float4(p1.z, p1.w, p2.x, p2.z);
 }
 
+#if defined(GS_ABLATE_DMAONLY)
+// Timing variant `dmaonly` (ops/kernels/ablate.py): the same three 16-byte
+// loads of the row, stored as they are, with no support extent.
+__device__ __forceinline__ void stage_raw(const float* __restrict__ row,
+                                          Lane* lane) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  lane->cull = __ldg(r4 + 0);
+  lane->conic = __ldg(r4 + 1);
+  lane->color = __ldg(r4 + 2);
+}
+#endif
+
+#if defined(GS_ABLATE_NOWRITE)
+// Timing variant `nowrite`: the sum of v over the block, in thread 0 (a
+// warp's butterfly, then the warps in order). Every thread must call it;
+// `scratch` holds one float a warp and no thread reads it any more.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += scratch[w];
+  }
+  return s;
+}
+#endif
+
+#if defined(GS_ABLATE_BLOCKS)
+// Timing builds pinned to production's occupancy (ops/kernels/ablate.py):
+// the least dynamic shared memory, at least `smem`, at which at most
+// `blocks` blocks of `threads` threads of `kernel` fit on an SM by the
+// occupancy API, so that a variant whose registers would fit more blocks
+// runs as many as production. A binary search over the opt-in range; the
+// last answer is kept, and so is the count it gives (`last_blocks`).
+inline int& last_blocks() {
+  static int n = 0;
+  return n;
+}
+
+template <typename Kernel>
+inline size_t pinned_smem(Kernel kernel, int threads, size_t smem, int blocks) {
+  static int last_threads = -1;
+  static size_t last_in = 0, last_out = 0;
+  if (threads == last_threads && smem == last_in) return last_out;
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       max_smem);
+  auto fit = [&](size_t s) {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, s);
+    return n;
+  };
+  size_t lo = smem, hi = static_cast<size_t>(max_smem);
+  if (fit(lo) > blocks) {  // the least s in (lo, hi] with fit(s) <= blocks
+    while (hi - lo > 1) {
+      const size_t mid = lo + (hi - lo) / 2;
+      if (fit(mid) <= blocks) {
+        hi = mid;
+      } else {
+        lo = mid;
+      }
+    }
+    lo = hi;
+  }
+  last_threads = threads;
+  last_in = smem;
+  last_out = lo;
+  last_blocks() = fit(lo);
+  return lo;
+}
+#endif
+
 // Whether the warp's box may hold a pixel inside the pair's support.
 // Rounding is monotone, so the box's extreme offsets bound every pixel's
 // rounded offset dx = x - mx.

@@ -7,6 +7,7 @@ Inputs: the (P, 16) f32 payload rows in sorted (tile, depth) order, the
 same shape (row 3 the final logT, row 6 the chunks composited). Output: the
 (P, 16) f32 per-pair gradient rows. The kernel leaves rows past
 tile_starts[-1] unwritten; the caller masks them (ops/kernels/rasterize.py).
+`ablate=` selects a timing variant (ops/kernels/ablate.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ...config import RasterConfig
 from ..binning import tile_grid
 from ..projection import PAYLOAD_DIM
 from ..tile_raster import rasterize_backward_torch
+from . import ablate as _ablate
 from .build import CudaKernel
 from .common import LANE_BYTES, NOUT, raster_warps
 from .forward import MAX_SMEM, _check_payload, _check_tile_size
@@ -52,9 +54,13 @@ def rasterize_backward_cuda(
     cfg: RasterConfig,
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
+    ablate: str = "",
 ) -> torch.Tensor:
     """Launch K2 on the current stream; returns the (P, 16) gradient rows
-    (rows >= tile_starts[-1] uninitialised)."""
+    (rows >= tile_starts[-1] uninitialised). `ablate` names a timing variant
+    (ops/kernels/ablate.py), launched from its own build and counted on its
+    own kernel; '' is production."""
+    _ablate.check("backward", ablate)
     _check_tile_size(cfg.tile_size)
     tiles_x, tiles_y = tile_grid(width, height, cfg.tile_size)
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
@@ -89,7 +95,9 @@ def rasterize_backward_cuda(
     if num_tiles == 0:
         return out
     stream = torch.cuda.current_stream(sorted_payload.device).cuda_stream
-    BACKWARD.launch(
+    kernel = (_ablate.variant_kernel("backward", BACKWARD, ablate) if ablate
+              else BACKWARD)
+    kernel.launch(
         sorted_payload.data_ptr(), tile_starts.data_ptr(), fwd_tiles.data_ptr(),
         cot_tiles.data_ptr(), num_tiles, cfg.tile_size, cfg.chunk_size,
         tiles_x, int(tile_row0), cfg.alpha_min, cfg.alpha_max,

@@ -101,10 +101,12 @@ class CudaKernel:
     def build(self) -> None:
         self._finish_build(self._start_build())
 
-    def fn(self, symbol: Optional[str] = None):
+    def fn(self, symbol: Optional[str] = None,
+           argtypes: Optional[Sequence] = None):
         """The bound C launcher `symbol` (default: the kernel's own), building
         the library at first use. A source may export several launchers
-        with the same arguments (one per instantiation of a template)."""
+        with the same arguments (one per instantiation of a template);
+        another function of the library gives its own `argtypes`."""
         symbol = symbol or self.symbol
         if symbol not in self._fns:
             if self._lib is None:
@@ -115,7 +117,7 @@ class CudaKernel:
                 err.restype = ctypes.c_char_p
                 self._lib, self._err = lib, err
             f = getattr(self._lib, symbol)
-            f.argtypes = self.argtypes
+            f.argtypes = self.argtypes if argtypes is None else list(argtypes)
             f.restype = ctypes.c_int
             self._fns[symbol] = f
         return self._fns[symbol]
@@ -149,3 +151,62 @@ def ptxas_lines(log: str) -> List[str]:
     """The register / shared-memory / spill lines of an `-Xptxas -v` log."""
     keys = ("registers", "spill", "smem", "Compiling entry")
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers a thread, static shared memory and spill bytes of the
+    (one) kernel of an `-Xptxas -v` log."""
+    import re
+
+    def grab(pattern):
+        m = re.search(pattern, log)
+        return int(m.group(1)) if m else 0
+
+    return dict(registers=grab(r"Used (\d+) registers"),
+                smem=grab(r"(\d+) bytes smem"),
+                spill_stores=grab(r"(\d+) bytes spill stores"),
+                spill_loads=grab(r"(\d+) bytes spill loads"))
+
+
+# Per-SM limits of compute capability 9.0 (CUDA C++ programming guide,
+# "Technical Specifications per Compute Capability"; the occupancy
+# calculator's allocation units).
+_SM90 = dict(threads=2048, blocks=32, registers=65536, reg_unit=256,
+            smem=233472, smem_reserved=1024, smem_unit=128)
+
+
+def blocks_per_sm(registers: int, threads: int, smem_bytes: int) -> int:
+    """Blocks of `threads` threads that fit on one SM of compute capability
+    9.0 at `registers` a thread and `smem_bytes` of shared memory a block
+    (static plus dynamic)."""
+    lim = _SM90
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // lim["reg_unit"]) * lim["reg_unit"]
+    by_regs = (lim["registers"] // per_warp) // warps if per_warp else lim["blocks"]
+    smem = -(-smem_bytes // lim["smem_unit"]) * lim["smem_unit"] + lim["smem_reserved"]
+    return min(lim["blocks"], lim["threads"] // threads, by_regs,
+               lim["smem"] // smem)
+
+
+def sass_counts(path) -> dict:
+    """Instructions of a built library's SASS by opcode (`cuobjdump -sass`,
+    the toolkit's disassembler): 'total', each opcode without its modifiers
+    (e.g. 'MUFU'), each MUFU function ('MUFU.EX2') and 'LDG.128' (16-byte
+    global loads)."""
+    import re
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts: Counter = Counter()
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+                         text):
+        op = m.group(1)
+        counts["total"] += 1
+        counts[op.split(".")[0]] += 1
+        if op.startswith("MUFU."):
+            counts[".".join(op.split(".")[:2])] += 1
+        if op.startswith("LDG") and ".128" in op:
+            counts["LDG.128"] += 1
+    return dict(counts)

@@ -5,6 +5,7 @@ Input: the (P, 16) f32 payload rows in sorted (tile, depth) order and the
 (T + 1,) int32 tile segment offsets. Output: the (T, 8, tile_size^2) f32
 block with rows R, G, B, logT, weight sum, depth sum, chunks composited, 0
 (the layout of the TPU kernel, ops/pallas/forward.py in the reference).
+`ablate=` selects a timing variant (ops/kernels/ablate.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ...config import RasterConfig
 from ..binning import tile_grid
 from ..projection import PAYLOAD_DIM
 from ..tile_raster import log_trans_eps, rasterize_forward_torch
+from . import ablate as _ablate
 from .build import CudaKernel
 from .common import LANE_BYTES, NOUT
 
@@ -62,8 +64,12 @@ def rasterize_forward_cuda(
     cfg: RasterConfig,
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
+    ablate: str = "",
 ) -> torch.Tensor:
-    """Launch K1 on the current stream; returns the (T, 8, tile_px) block."""
+    """Launch K1 on the current stream; returns the (T, 8, tile_px) block.
+    `ablate` names a timing variant (ops/kernels/ablate.py), launched from
+    its own build and counted on its own kernel; '' is production."""
+    _ablate.check("forward", ablate)
     _check_tile_size(cfg.tile_size)
     tiles_x, tiles_y = tile_grid(width, height, cfg.tile_size)
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
@@ -88,7 +94,9 @@ def rasterize_forward_cuda(
     if num_tiles == 0:
         return out
     stream = torch.cuda.current_stream(sorted_payload.device).cuda_stream
-    FORWARD.launch(
+    kernel = (_ablate.variant_kernel("forward", FORWARD, ablate) if ablate
+              else FORWARD)
+    kernel.launch(
         sorted_payload.data_ptr(), tile_starts.data_ptr(), num_tiles,
         cfg.tile_size, cfg.chunk_size, tiles_x, int(tile_row0),
         cfg.alpha_min, cfg.alpha_max, cfg.sigma_radius * cfg.sigma_radius,

@@ -8,7 +8,8 @@ Output: (N, 16), row r the sum of rows [seg[r], seg[r+1]).
 
 `segment_reduce_pairs_split` is the plain twin of the kernel's summation
 order (segments longer than LONG_ROWS split into GROUPS pieces), bit for
-bit; `segment_reduce_pairs_torch` is the function.
+bit; `segment_reduce_pairs_torch` is the function. `ablate=` selects a
+timing variant (ops/kernels/ablate.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from . import ablate as _ablate
 from .build import CudaKernel
 
 _P = ctypes.c_void_p
@@ -38,10 +40,14 @@ __all__ = ["SEGREDUCE", "long_segment_pieces", "segment_reduce_pairs_cuda",
 
 
 def segment_reduce_pairs_torch(rows: torch.Tensor, seg_offsets: torch.Tensor,
-                               n: int) -> torch.Tensor:
+                               n: int, ablate: str = "") -> torch.Tensor:
     """Plain version of K3: each row's rank by a search over the offsets,
     then `index_add_` (in row order on the CPU). Rows past the last offset
-    are left out."""
+    are left out. `ablate`: 'dmaonly' gives zeros (the variant's rows are
+    under 1e-20), 'stacked' is production."""
+    if _ablate.check("segreduce", ablate) == "dmaonly":
+        return torch.zeros((n, rows.shape[1]), dtype=rows.dtype,
+                           device=rows.device)
     p = rows.shape[0]
     pos = torch.arange(p, dtype=torch.int32, device=rows.device)
     rank = torch.searchsorted(seg_offsets, pos, right=True, out_int32=True) - 1
@@ -105,8 +111,11 @@ def segment_reduce_pairs_split(rows: torch.Tensor, seg_offsets: torch.Tensor,
 
 
 def segment_reduce_pairs_cuda(rows: torch.Tensor, seg_offsets: torch.Tensor,
-                              n: int) -> torch.Tensor:
-    """Launch K3 on the current stream; returns (n, 16)."""
+                              n: int, ablate: str = "") -> torch.Tensor:
+    """Launch K3 on the current stream; returns (n, 16). `ablate` names a
+    timing variant (ops/kernels/ablate.py), launched from its own build and
+    counted on its own kernel; '' is production."""
+    _ablate.check("segreduce", ablate)
     for name, t in (("rows", rows), ("seg_offsets", seg_offsets)):
         if t.device.type != "cuda":
             raise ValueError(f"segment_reduce_pairs_cuda needs CUDA tensors "
@@ -129,6 +138,8 @@ def segment_reduce_pairs_cuda(rows: torch.Tensor, seg_offsets: torch.Tensor,
     if n == 0:
         return out
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    SEGREDUCE.launch(rows.data_ptr(), seg_offsets.data_ptr(), n,
+    kernel = (_ablate.variant_kernel("segreduce", SEGREDUCE, ablate) if ablate
+              else SEGREDUCE)
+    kernel.launch(rows.data_ptr(), seg_offsets.data_ptr(), n,
                      out.data_ptr(), stream)
     return out

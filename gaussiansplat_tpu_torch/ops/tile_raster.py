@@ -15,6 +15,10 @@ from the saved final value by cumulative sums of log1p(-alpha), and sums
 each pair's gradient row over the tile's pixels. Autograd never runs through
 either: the rasterizer's `torch.autograd.Function` (ops/kernels/rasterize.py)
 calls the backward explicitly.
+
+Both take `ablate=`, the plain versions of the kernels' timing variants
+(ops/kernels/ablate.py): the outputs the variant keeps, and zeros where the
+variant leaves values under 1e-20.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..config import RasterConfig
 from .binning import tile_grid
+from .kernels import ablate as _ablate
 from .kernels.common import NOUT, OUT_LOGT, OUT_STOP
 from .projection import PAYLOAD_DIM
 
@@ -115,15 +120,30 @@ def rasterize_forward_torch(
     cfg: RasterConfig,
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
+    ablate: str = "",
 ) -> torch.Tensor:
     """Plain version of K1. Returns the (T, NOUT, tile_px) block: rows R, G,
-    B, logT, weight sum, depth sum, chunks composited (as f32), 0."""
+    B, logT, weight sum, depth sum, chunks composited (as f32), 0.
+
+    `ablate`: 'noacc' keeps logT and the stop row, with R, G, B, weight sum
+    and depth 0; 'dmaonly' never composites, so logT is 0 and the stop row
+    counts every chunk of the tile's segment."""
+    _ablate.check("forward", ablate)
+    _ablate.no_plain_version("forward", ablate)
     ts, cs = cfg.tile_size, cfg.chunk_size
     px = ts * ts
     tiles_x, tiles_y = tile_grid(width, height, ts)
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
     device = sorted_payload.device
     log_eps = log_trans_eps(cfg)
+    if ablate == "dmaonly":
+        start, end = tile_starts[:-1].to(torch.int64), tile_starts[1:].to(torch.int64)
+        base = torch.div(start, cs, rounding_mode="floor") * cs
+        n_chunks = torch.div(end - base + cs - 1, cs, rounding_mode="floor")
+        out = torch.zeros((num_tiles, NOUT, px), dtype=torch.float32,
+                          device=device)
+        out[:, OUT_STOP] = n_chunks.to(torch.float32)[:, None]
+        return out
 
     # Aligned windows may reach up to cs rows past the last pair.
     payload = torch.cat([
@@ -186,8 +206,13 @@ def rasterize_forward_torch(
                 acc[..., 4], stop.to(torch.float32)[:, None].expand(nb, px),
                 torch.zeros_like(log_t)]
         blocks.append(torch.stack(rows, dim=1))
-    return torch.cat(blocks) if blocks else torch.zeros(
+    out = torch.cat(blocks) if blocks else torch.zeros(
         (0, NOUT, px), dtype=torch.float32, device=device)
+    if ablate == "noacc":
+        keep = torch.zeros(NOUT, dtype=torch.bool, device=device)
+        keep[[OUT_LOGT, OUT_STOP]] = True
+        out = torch.where(keep[None, :, None], out, torch.zeros_like(out))
+    return out
 
 
 def rasterize_backward_torch(
@@ -200,11 +225,20 @@ def rasterize_backward_torch(
     cfg: RasterConfig,
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
+    ablate: str = "",
 ) -> torch.Tensor:
     """Plain version of K2. Returns the (P, 16) per-pair gradient rows:
     channels 0-5 (mean, conic, opacity) through alpha, 6-10 (r, g, b, the
     constant-1 weight channel, depth) directly, 11-15 zero. Rows of chunks
-    the forward did not composite, and rows past tile_starts[-1], are zero."""
+    the forward did not composite, and rows past tile_starts[-1], are zero.
+
+    `ablate`: 'nogeom' zeroes channels 0-5, 'nodirect' channels 6-10, and
+    'nograd' and 'dmaonly' every channel."""
+    _ablate.check("backward", ablate)
+    _ablate.no_plain_version("backward", ablate)
+    if ablate in ("nograd", "dmaonly"):
+        return torch.zeros((sorted_payload.shape[0], PAYLOAD_DIM),
+                           dtype=torch.float32, device=sorted_payload.device)
     ts, cs = cfg.tile_size, cfg.chunk_size
     px = ts * ts
     tiles_x, tiles_y = tile_grid(width, height, ts)
@@ -287,6 +321,10 @@ def rasterize_backward_torch(
                 -2.0 * dq.sum(1) / torch.clamp(op, min=1e-20),
             ], dim=1)                                               # (B, 6, CS)
             direct = torch.bmm(dacc.transpose(1, 2), w)             # (B, 5, CS)
+            if ablate == "nogeom":
+                geom = torch.zeros_like(geom)
+            elif ablate == "nodirect":
+                direct = torch.zeros_like(direct)
             rows = torch.cat([geom, direct, torch.zeros_like(direct)], dim=1)
             out[gidx[in_seg]] = rows.transpose(1, 2)[in_seg]
             log_t = torch.where(active[:, None], log_t_start, log_t)

@@ -52,11 +52,20 @@ def initialize(
     Arguments not given come from torchrun's environment: `init_method`
     defaults to `env://` (MASTER_ADDR, MASTER_PORT), `world_size` to
     WORLD_SIZE, `rank` to RANK and `local_rank` to LOCAL_RANK. The backend
-    is `nccl` when CUDA is available, else `gloo`; pass `backend="gloo"`
-    for several ranks on one card, which NCCL refuses. With CUDA, this
+    is `nccl` unless one is given, and NCCL requires a card: with no card
+    visible this raises rather than carry the rank on through host memory.
+    gloo runs only when asked for: `backend="gloo"` for several ranks on
+    one card, which NCCL refuses, or for ranks on the CPU. With CUDA, this
     rank's card is cuda:LOCAL_RANK."""
     if dist.is_initialized():
         return
+    if backend is None:
+        backend = "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "multihost.initialize: the nccl backend needs a CUDA card and "
+            "torch.cuda.is_available() is False on this rank; pass "
+            "backend='gloo' to run the ranks on the CPU")
     env = os.environ
     if world_size is None:
         world_size = int(env["WORLD_SIZE"])
@@ -64,8 +73,6 @@ def initialize(
         rank = int(env["RANK"])
     if local_rank is None:
         local_rank = int(env.get("LOCAL_RANK", 0))
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if torch.cuda.is_available():
         torch.cuda.set_device(local_rank)
     kwargs = {}

@@ -15,6 +15,9 @@ within 1e-5 of each channel's largest magnitude. Both kernels must give the
 same bits on two launches. K4 and K3 are also held at the edges of their
 designs on synthetic inputs: K4 integer-equal to its plain version, K3
 bit-equal to the plain twin of its summation order.
+The timing variants of K1, K2 and K3 (`ablate=`) are held to their
+contracts against the production kernels' outputs on the same synthetic
+inputs (`ablate.contract`), each on its own launch counter.
 """
 
 import numpy as np
@@ -31,7 +34,7 @@ from gaussiansplat_tpu_torch.ops.binning import (
     expand_compacted,
 )
 from gaussiansplat_tpu_torch.ops.camera import look_at
-from gaussiansplat_tpu_torch.ops.kernels import backward, forward
+from gaussiansplat_tpu_torch.ops.kernels import ablate, backward, forward
 from gaussiansplat_tpu_torch.ops.kernels.backward import (
     BACKWARD,
     rasterize_backward_cuda,
@@ -778,3 +781,74 @@ def test_gauss_sharded_renders_match_render(cuda, path):
         want = ref.trainable()[k].grad
         scale = want.abs().max().clamp(min=1e-12)
         assert float(((p.grad - want).abs() / scale).max()) <= 2e-3, k
+
+
+def _variant_inputs(device):
+    """Production outputs of K1, K2 and K3 on one synthetic scene, and a
+    call of each kernel with `ablate=`."""
+    cfg = RasterConfig()
+    cam, b, sp, fwd, cot = _backward_inputs(device, cfg)
+    with torch.no_grad():
+        grad = rasterize_backward_cuda(sp, b.tile_starts, cot, fwd, cam.width,
+                                       cam.height, cfg)
+        n, p = b.depth_order.shape[0], b.sorted_pos.shape[0]
+        g = torch.Generator().manual_seed(3)
+        rows = torch.randn((p, 16), generator=g).to(device)
+        rows[int(b.num_pairs):] = 0.0
+        red = segment_reduce_pairs_cuda(rows, b.seg_offsets, n)
+    calls = {
+        "forward": lambda v: rasterize_forward_cuda(
+            sp, b.tile_starts, cam.width, cam.height, cfg, ablate=v),
+        "backward": lambda v: rasterize_backward_cuda(
+            sp, b.tile_starts, cot, fwd, cam.width, cam.height, cfg, ablate=v),
+        "segreduce": lambda v: segment_reduce_pairs_cuda(
+            rows, b.seg_offsets, n, ablate=v),
+    }
+    full = {"forward": fwd, "backward": grad, "segreduce": red}
+    return cfg, b, calls, full
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    (k, v) for k, names in ablate.VARIANTS.items() for v in names])
+def test_variant_meets_its_contract(cuda, kernel, variant):
+    cfg, b, calls, full = _variant_inputs(cuda)
+    base = {"forward": FORWARD, "backward": BACKWARD, "segreduce": SEGREDUCE}[kernel]
+    k = ablate.variant_kernel(kernel, base, variant)
+    before, prod = k.launches, base.launches
+    with torch.no_grad():
+        got = calls[kernel](variant)
+        torch.cuda.synchronize()
+    assert k.launches == before + 1 and base.launches == prod
+    r = ablate.contract(kernel, variant, got, full[kernel], b.tile_starts,
+                        cfg.chunk_size)
+    assert r["ok"], r["text"]
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    ("forward", "noacc"), ("backward", "nograd"), ("forward", ""),
+    ("backward", "")], ids=["forward_noacc", "backward_nograd",
+                            "forward_production", "backward_production"])
+def test_pinned_build_runs_at_the_given_occupancy(cuda, monkeypatch, kernel,
+                                                  variant):
+    """A build pinned to 2 blocks per SM (its shared memory padded by the
+    launcher) reports 2 by the occupancy API; a pinned variant meets its
+    contract and pinned production gives production's bits."""
+    cfg, b, calls, full = _variant_inputs(cuda)
+    module, attr = {"forward": (forward, "FORWARD"),
+                    "backward": (backward, "BACKWARD")}[kernel]
+    k = ablate.variant_kernel(kernel, getattr(module, attr), variant, blocks=2)
+    before = k.launches
+    monkeypatch.setattr(module, attr, k)
+    with torch.no_grad():
+        got = calls[kernel]("")
+        torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert ablate.pinned_blocks_per_sm(k) == 2
+    if not variant:
+        n = int(b.num_pairs) if kernel == "backward" else got.shape[0]
+        assert torch.equal(got[:n].view(torch.int32),
+                           full[kernel][:n].view(torch.int32))
+        return
+    r = ablate.contract(kernel, variant, got, full[kernel], b.tile_starts,
+                        cfg.chunk_size)
+    assert r["ok"], r["text"]

@@ -2,7 +2,8 @@
 processes started as torchrun starts them: `initialize` from MASTER_ADDR /
 MASTER_PORT / RANK / WORLD_SIZE / LOCAL_RANK (gloo, idempotent), the
 global mesh and its host-locality check, `global_batch`, and `replicate`
-making every rank's model and Adam state equal to rank 0's.
+making every rank's model and Adam state equal to rank 0's. In this
+process: `initialize` with no backend raises where no card is visible.
 
 This file is also the ranks' entry point:
 `python tests/test_torch_multihost.py OUT_DIR` with the environment set.
@@ -117,3 +118,24 @@ def test_initialize_from_environment_and_replicate(tmp_path):
         assert int(r["gts_stride0"]) == 0 and r["cams_fx"].shape == (2,)
     # Step 3 with 2 feeders of one view: sample indices 6 and 7 of 5 views.
     assert [float(r["view"]) for r in res] == [1.0, 2.0]
+
+
+def test_initialize_without_a_card_needs_gloo_asked_for(monkeypatch):
+    """With no backend given, `initialize` takes NCCL and so needs a card:
+    where CUDA is not available it raises before any process group is made
+    (no silent gloo over host memory); gloo runs only when asked for."""
+    import torch.distributed as dist
+
+    from gaussiansplat_tpu_torch.parallel import multihost as mh
+
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"backend": "nccl"}):
+        try:
+            mh.initialize(init_method="file:///nonexistent", world_size=1,
+                          rank=0, **kw)
+        except RuntimeError as e:
+            assert "backend='gloo'" in str(e) and "CUDA" in str(e)
+        else:
+            raise AssertionError(f"initialize({kw}) did not raise")
+    assert not dist.is_initialized()
