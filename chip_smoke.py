@@ -27,6 +27,12 @@
    each pair's support extent, the live (pixel, pair)s) and charge the
    function's work on them at the card's per-SM rates; every term is
    printed, and beside it the figure of the kernels' own design.
+3b. Determinism: on phase 3's 1080p/1M scene, `render()` and autograd of
+   mean(image^2) run twice: the image, the loss and the gradient of every
+   parameter bit-equal; then one `make_train_step` from two deep copies of
+   a state one step into training: parameters, alive, Adam moments and
+   step counts, densify statistics, the generator and the loss bit-equal.
+   K1-K4 on every run.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -49,6 +55,17 @@
    800 (densify passes at 500 and 600, alive count within 10% of the
    straight run's). Median step ms, each densify pass's ms, eval ms per
    view and the phase's peak device memory are printed.
+7b. Restart: the loop scene's untrained initial model, 24 steps of
+   `Trainer.fit` (RESTART_SCHEDULE: checkpoints every 8 steps, densify
+   passes every 4, the SH degree ramping), once straight and once through
+   `utils.run_resilient` with the card's own out-of-memory inside step 12:
+   the timer (`BallastAtStep`) takes a ballast that leaves OOM_MARGIN of
+   the card free, so the step's allocations fail in the caching allocator.
+   Exactly one restart, on a torch.OutOfMemoryError; the retry resumes at
+   step 9 and densifies at 12, 16, 20 and 24; the final state_dict and the
+   last loss bit-equal to the straight run's. Both wall times and both
+   peaks of device memory (the retry's from the restart on, which must not
+   exceed the straight run's by more than 5%) are printed.
 8. CLI train: `python -m gaussiansplat_tpu_torch train --scene synthetic`
    as a user runs it (on the card by default) for 200 steps, `--resume`
    to 300, and `eval` of the exported PLY; the run's files, overflow 0,
@@ -110,8 +127,8 @@
    builds were pinned, `pinned_ms` and `pinned_derived_ms`.
 The serve phase also checks native IO: the CLI read the exported 1M PLY
 with the native parser; both parsers' times are printed.
-The launch counts are zeroed just before the serve, the train, the loop,
-the CLI-train, each giant frame's requests and the 2D steps (and in each
+The launch counts are zeroed just before each determinism run, the
+serve, the train, the loop, the restart, the CLI-train, each giant frame's requests and the 2D steps (and in each
 rank around its render, steps and ring) and read just after; every kernel
 of the phase must have launched (K1-K4 on every training step, K4 and K1
 on every render).
@@ -629,6 +646,93 @@ def check_skewed(cfg, cam, device, card: str):
     return k4, k3
 
 
+def determinism_phase(model, cam, cfg, kernels, card: str) -> dict:
+    """Phase 3b: the 1080p/1M render with its gradients, and one training
+    step, each run twice and held bit for bit (see the module docstring).
+    Returns the launch counts of each run."""
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.render import render
+    from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
+
+    params = model.trainable()
+
+    def render_grads():
+        out = render(model, cam, cfg, sh_degree=3)
+        loss = torch.mean(out.image ** 2)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return out.image.detach(), loss.detach(), dict(zip(params, grads))
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.name: k.launches for k in kernels}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"determinism: a kernel did not launch: "
+                                 f"{launches}")
+        return out, ms, launches
+
+    (img1, l1, g1), ms1, n1 = counted(render_grads)
+    (img2, l2, g2), ms2, n2 = counted(render_grads)
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    if not torch.equal(img1, img2) or not torch.equal(l1, l2) or differ:
+        raise AssertionError(
+            f"determinism: render and gradients differ between two runs: "
+            f"image {not torch.equal(img1, img2)}, loss {float(l1)} vs "
+            f"{float(l2)}, gradients {differ}")
+    if not all(bool(g.any()) for g in g1.values()):
+        raise AssertionError("determinism: a gradient is all zero")
+    print(f"determinism: render + autograd of mean(image^2) twice at "
+          f"{WIDTH}x{HEIGHT}, n={model.capacity}, SH 3: image, loss "
+          f"{float(l1)!r} and the gradients of {list(g1)} bit-equal "
+          f"({ms1:.3f} / {ms2:.3f} ms, launches {n1}, {n2}) | {card}")
+
+    # One step from two deep copies of a state one step into training.
+    tcfg = TrainConfig()
+    gt = torch.flip(img1, [1])
+    step = make_train_step(cfg, tcfg)
+    base = init_train_state(copy.deepcopy(model), tcfg,
+                            float(scene_extent(model)))
+    base, _ = step(base, cam, gt, 3)
+    runs = []
+    for _ in range(2):
+        state = copy.deepcopy(base)
+        (state, met), ms, n = counted(lambda: step(state, cam, gt, 3))
+        runs.append((state, met, ms, n))
+    del base
+    (a, ma, msa, na), (b, mb, msb, nb) = runs
+    differ = [f"model.{k}" for k, v in a.model.state_dict().items()
+              if not torch.equal(v, b.model.state_dict()[k])]
+    for ga, gb in zip(a.optimizer.param_groups, b.optimizer.param_groups):
+        sa = a.optimizer.state[ga["params"][0]]
+        sb = b.optimizer.state[gb["params"][0]]
+        differ += [f"adam.{ga['name']}.{k}" for k in ("step", "exp_avg",
+                                                      "exp_avg_sq")
+                   if not torch.equal(sa[k], sb[k])]
+    differ += [f"densify.{f}" for f in ("grad2d_sum", "grad2d_count",
+                                        "max_radii")
+               if not torch.equal(getattr(a.densify, f), getattr(b.densify, f))]
+    if a.step != b.step or a.step != 2:
+        differ.append(f"step {a.step} vs {b.step}")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        differ.append("generator")
+    if not torch.equal(ma["loss"], mb["loss"]):
+        differ.append("loss")
+    if differ:
+        raise AssertionError(f"determinism: one training step from two "
+                             f"copies of a state differs in {differ}")
+    print(f"determinism: one make_train_step from two deep copies of a state "
+          f"(one step in): parameters, alive, Adam moments and step counts, "
+          f"densify statistics, generator and loss {float(ma['loss'])!r} "
+          f"bit-equal ({msa:.3f} / {msb:.3f} ms, launches {na}, {nb}) | {card}")
+    del runs, a, b
+    return {"render": [n1, n2], "step": [na, nb]}
+
+
 def serve(model, cfg, card: str):
     """8 render requests plus 2 CLI frames; returns the CLI-checked stats."""
     from gaussiansplat_tpu_torch import cli
@@ -829,9 +933,10 @@ LOOP_SCHEDULE = dict(iterations=800, sh_degree=3, sh_increase_every=200,
                      eval_every=200, log_every=100, checkpoint_every=400)
 
 
-def loop(kernels, card: str) -> dict:
+def loop(kernels, card: str):
     """The training loop on the quality configuration's scene (see the
-    module docstring, phase 7). Returns the phase's launch counts."""
+    module docstring, phase 7). Returns the phase's launch counts, and the
+    scene's untrained initial model and its train views for phase 7b."""
     from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
     from gaussiansplat_tpu_torch.data.benchmark import (
         benchmark_scene, make_gt_renderer)
@@ -881,6 +986,7 @@ def loop(kernels, card: str) -> dict:
 
     tcfg = TrainConfig(**LOOP_SCHEDULE)
     init_copy = copy.deepcopy(scene.init_model)
+    fresh = copy.deepcopy(scene.init_model)
     rows, timer = [], StageTimer()
     for k in kernels:
         k.launches = 0
@@ -988,6 +1094,149 @@ def loop(kernels, card: str) -> dict:
           + f"; eval ms per view median "
           f"{float(np.median(timer.ms['eval_view'])):.3f}; peak device "
           f"memory {peak} B ({peak / 2**30:.3f} GiB) | {card}")
+    return launches, (fresh, scene.train_views)
+
+
+# Phase 7b's schedule: checkpoints at 8, 16 and 24, densify passes every 4
+# steps from 4, the SH degree ramping every 6 steps; every step logged. The
+# out-of-memory comes at step OOM_STEP (after the step-8 checkpoint, in the
+# first epoch of the 16 views), with OOM_MARGIN bytes of the card left free.
+RESTART_SCHEDULE = dict(iterations=24, checkpoint_every=8, densify_start=4,
+                        densify_every=4, densify_end=24,
+                        densify_target_fraction=0.08, sh_degree=3,
+                        sh_increase_every=6, log_every=1)
+OOM_STEP, OOM_MARGIN = 12, 64 << 20
+
+
+class BallastAtStep:
+    """A `Trainer.fit` timer whose train step, at its `at`-th call, first
+    takes a ballast tensor that leaves between `margin` and `margin` + 2 MiB
+    of the card free (the caching allocator's cache emptied first): the
+    step's own allocations then fail in the allocator with
+    torch.OutOfMemoryError. Every wrapped call is timed by `timer`
+    (utils/logging.StageTimer); `ballast` is freed by its holder."""
+
+    def __init__(self, timer, at: int, margin: int):
+        self.timer, self.at, self.margin = timer, at, margin
+        self.calls, self.ballast, self.taken = 0, None, 0
+
+    def wrap(self, name: str, fn):
+        timed = self.timer.wrap(name, fn)
+        if name != "step":
+            return timed
+
+        def step(*args, **kwargs):
+            self.calls += 1
+            if self.calls == self.at:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                free, _ = torch.cuda.mem_get_info()
+                size = (free - self.margin) // (2 << 20) * (2 << 20)
+                self.ballast = torch.empty(size, dtype=torch.uint8,
+                                           device="cuda")
+                self.taken = size
+            return timed(*args, **kwargs)
+
+        return step
+
+
+def restart_phase(init_model, views, kernels, card: str) -> dict:
+    """Phase 7b: fail-fast restart on the card (see the module docstring).
+    Returns the restart run's launch counts."""
+    from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
+    from gaussiansplat_tpu_torch.train import Trainer
+    from gaussiansplat_tpu_torch.utils import StageTimer, run_resilient
+
+    trainer = Trainer(raster_cfg=RasterConfig(),
+                      cfg=TrainConfig(**RESTART_SCHEDULE))
+    iters = RESTART_SCHEDULE["iterations"]
+    every = RESTART_SCHEDULE["checkpoint_every"]
+    ckpt = (OOM_STEP - 1) // every * every       # the retry's checkpoint
+
+    def measured(run):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = copy.deepcopy(init_model)
+        rows = []
+        (_, met), straight_s, straight_peak = measured(lambda: trainer.fit(
+            straight, views, log=lambda it, m: rows.append((it, m)),
+            ckpt_dir=os.path.join(tmp, "straight")))
+        if straight_peak < 4 * OOM_MARGIN:
+            raise AssertionError(f"restart: a step needs {straight_peak} B, "
+                                 f"not above 4x the margin {OOM_MARGIN} B")
+
+        model = copy.deepcopy(init_model)
+        timer = BallastAtStep(StageTimer(), OOM_STEP, OOM_MARGIN)
+        restarts, rrows = [], []
+
+        def on_restart(attempt, exc):
+            restarts.append((attempt, type(exc), str(exc).splitlines()[0],
+                             timer.ballast is not None))
+            timer.ballast = None
+            # The retry's peak: from here, after the ballast is gone.
+            torch.cuda.reset_peak_memory_stats()
+
+        for k in kernels:
+            k.launches = 0
+        (out, rmet), restart_s, retry_peak = measured(lambda: run_resilient(
+            trainer.fit, model, views, log=lambda it, m: rrows.append((it, m)),
+            ckpt_dir=os.path.join(tmp, "restart"), timer=timer, backoff_s=0.0,
+            on_restart=on_restart))
+        launches = {k.name: k.launches for k in kernels}
+
+    print(f"restart: {len(restarts)} restart(s) "
+          + "; ".join(f"attempt {a}: {t.__module__}.{t.__name__} ({msg}), "
+                      f"ballast held {held}" for a, t, msg, held in restarts)
+          + f"; ballast {timer.taken} B ({timer.taken / 2**30:.3f} GiB)")
+    if len(restarts) != 1 or not issubclass(restarts[0][1], torch.OutOfMemoryError) \
+            or not restarts[0][3]:
+        raise AssertionError(f"restart: want one torch.OutOfMemoryError "
+                             f"raised while the ballast was held: {restarts}")
+    its = [it for it, _ in rrows]
+    first, retry = rrows[:OOM_STEP - 1], rrows[OOM_STEP - 1:]
+    want_its = list(range(1, OOM_STEP)) + list(range(ckpt + 1, iters + 1))
+    if its != want_its:
+        raise AssertionError(f"restart: logged steps {its}, want {want_its}")
+    dens = ([it for it, m in first if "cloned" in m],
+            [it for it, m in retry if "cloned" in m])
+    straight_dens = [it for it, m in rows if "cloned" in m]
+    if dens != ([4, 8], [12, 16, 20, 24]) or straight_dens != [4, 8, 12, 16, 20, 24]:
+        raise AssertionError(f"restart: densify passes {dens}, straight "
+                             f"{straight_dens}")
+    if out is not model:
+        raise AssertionError("restart: fit returned another model")
+    want = straight.state_dict()
+    differ = [k for k, v in model.state_dict().items()
+              if not torch.equal(v, want[k])]
+    if differ or rmet["loss"] != met["loss"]:
+        raise AssertionError(f"restart: {differ} differ from the straight "
+                             f"run; loss {rmet['loss']} vs {met['loss']}")
+    steps = OOM_STEP - 1 + iters - ckpt
+    if min(launches.values()) < steps:
+        raise AssertionError(f"restart: launches {launches} for {steps} steps")
+    cam = views[0][0]
+    print(f"restart at {cam.width}x{cam.height}, capacity {model.capacity}, "
+          f"{iters} steps: "
+          f"out-of-memory inside step {OOM_STEP}, retry from the step-{ckpt} "
+          f"checkpoint (steps {ckpt + 1}-{iters}), densify passes {dens[1]} "
+          f"after it; "
+          f"final state_dict ({len(want)} tensors, {int(model.num_alive)} "
+          f"alive) bit-equal to the straight run's, last loss "
+          f"{rmet['loss']!r} equal; wall {straight_s:.3f} s straight, "
+          f"{restart_s:.3f} s with the restart; peak device memory above "
+          f"the run's start {straight_peak} B straight, {retry_peak} B in "
+          f"the retry; launches {launches} for {steps} steps | {card}")
+    if retry_peak > 1.05 * straight_peak:
+        raise AssertionError(f"restart: the retry's peak {retry_peak} B is "
+                             f"above the straight run's {straight_peak} B")
     return launches
 
 
@@ -2307,6 +2556,11 @@ def main() -> int:
     del binning, dsorted
     torch.cuda.empty_cache()
 
+    # 3b. determinism: counts zeroed just before each run, read just after
+    determinism = determinism_phase(model, bench_cam, cfg,
+                                    [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    torch.cuda.empty_cache()
+
     # 4. serve: counts zeroed just before, read just after
     EXPAND.launches = 0
     FORWARD.launches = 0
@@ -2336,7 +2590,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. loop: counts zeroed just before Trainer.fit, read just after
-    loop_launches = loop([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    loop_launches, (init_model, views) = loop(
+        [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    torch.cuda.empty_cache()
+
+    # 7b. restart after the card's out-of-memory: counts zeroed just before
+    # run_resilient, read just after
+    restart_launches = restart_phase(
+        init_model, views, [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    del init_model, views
     torch.cuda.empty_cache()
 
     # 8. the loop through the CLI: counts zeroed just before, read after
@@ -2405,6 +2667,9 @@ def main() -> int:
     for k, name in zip(record["kernels"], ("expand", "forward", "backward",
                                             "segreduce")):
         k["loop_launches"] = loop_launches[name]
+        k["restart_launches"] = restart_launches[name]
+        k["determinism_launches"] = [
+            r[name] for key in ("render", "step") for r in determinism[key]]
         k["splats2d_launches"] = splats["launches"][name]
         k["sharded_step_launches"] = [
             r[name] for key in ("step_d1t2", "step_d2t1")

@@ -270,7 +270,11 @@ class Trainer:
         PNG of the first eval view is written there. With `ckpt_dir`, the
         state is saved every `cfg.checkpoint_every` steps and at the end;
         `resume` restores the latest checkpoint and continues after its
-        step (the view order restarts from `cfg.seed`). A `timer`
+        step (the view order restarts from `cfg.seed`); everything after
+        the restore, the densify passes included, takes the checkpoint's
+        scene extent, so a retry handed the model that a failed attempt
+        trained (utils/resilience.run_resilient) equals a straight run bit
+        for bit while the view order is in its first epoch. A `timer`
         (utils/logging.StageTimer) times every train step, densify pass,
         opacity reset and eval view."""
         cfg = self.cfg
@@ -283,6 +287,9 @@ class Trainer:
             state, ck_step = restore_checkpoint(ckpt_dir, state)
             if ck_step is not None:
                 start_it = ck_step
+                # `model` may be the one a failed attempt trained: the
+                # extent is the checkpoint's, as a straight run had it.
+                extent = state.extent
         train_step = make_train_step(self.raster_cfg, cfg)
         densify_fn = make_densify_fn(cfg)
         opacity_reset_fn = make_opacity_reset_fn(cfg)

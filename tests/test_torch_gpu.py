@@ -18,6 +18,9 @@ bit-equal to the plain twin of its summation order.
 The timing variants of K1, K2 and K3 (`ablate=`) are held to their
 contracts against the production kernels' outputs on the same synthetic
 inputs (`ablate.contract`), each on its own launch counter.
+On a small scene, `run_resilient` around `Trainer.fit` restarts after the
+caching allocator's own out-of-memory and ends bit-equal to a straight run,
+and one training step from two copies of a state is bit-equal.
 """
 
 import numpy as np
@@ -852,3 +855,106 @@ def test_pinned_build_runs_at_the_given_occupancy(cuda, monkeypatch, kernel,
     r = ablate.contract(kernel, variant, got, full[kernel], b.tile_starts,
                         cfg.chunk_size)
     assert r["ok"], r["text"]
+
+
+RESTART_CFG = dict(iterations=6, densify_start=2, densify_every=2,
+                   densify_end=6, densify_target_fraction=0.3,
+                   densify_scale_thresh=0.05, random_background=True,
+                   sh_degree=1, sh_increase_every=2, checkpoint_every=2,
+                   log_every=1)
+
+
+def _restart_scene(cuda):
+    from gaussiansplat_tpu_torch.data import synthetic_scene
+
+    scene, _ = synthetic_scene(torch.Generator().manual_seed(1),
+                               n_gaussians=2048, n_train=8, n_test=1,
+                               width=128, height=128, fx=160.0, device=cuda)
+    return scene
+
+
+def test_restart_after_card_oom_equals_straight_run(cuda, tmp_path):
+    """At step 5 (after the step-4 checkpoint) the timer first takes a
+    ballast that leaves 4-6 MiB of the card free, so the step's own
+    allocations fail in the caching allocator. run_resilient restarts once
+    on that torch.OutOfMemoryError, the retry resumes at 5, densifies at 6
+    and ends bit-equal to a straight run."""
+    import copy
+
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.train import Trainer
+    from gaussiansplat_tpu_torch.utils import StageTimer, run_resilient
+
+    scene = _restart_scene(cuda)
+    trainer = Trainer(raster_cfg=RasterConfig(), cfg=TrainConfig(**RESTART_CFG))
+    straight = copy.deepcopy(scene.init_model)
+    _, met = trainer.fit(straight, scene.train_views)
+
+    class BallastAtStep5(StageTimer):
+        ballast, calls = None, 0
+
+        def wrap(self, name, fn):
+            timed = super().wrap(name, fn)
+
+            def step(*args, **kwargs):
+                self.calls += 1
+                if self.calls == 5:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    free, _ = torch.cuda.mem_get_info()
+                    self.ballast = torch.empty(
+                        (free - (4 << 20)) // (2 << 20) * (2 << 20),
+                        dtype=torch.uint8, device=cuda)
+                return timed(*args, **kwargs)
+
+            return step if name == "step" else timed
+
+    timer, restarts, rows = BallastAtStep5(), [], []
+
+    def on_restart(attempt, exc):
+        restarts.append((type(exc), timer.ballast is not None))
+        timer.ballast = None
+
+    model = copy.deepcopy(scene.init_model)
+    _, rmet = run_resilient(
+        trainer.fit, model, scene.train_views,
+        log=lambda it, m: rows.append((it, m)), ckpt_dir=str(tmp_path),
+        timer=timer, backoff_s=0.0, on_restart=on_restart)
+    assert restarts == [(torch.OutOfMemoryError, True)]
+    assert [it for it, _ in rows] == [1, 2, 3, 4, 5, 6]
+    assert [it for it, m in rows if "cloned" in m] == [2, 4, 6]
+    for k, v in straight.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    assert rmet["loss"] == met["loss"]
+
+
+def test_train_step_twice_bit_equal(cuda):
+    """One make_train_step from two deep copies of a state one step into
+    training: parameters, Adam moments and step counts, densify statistics
+    and the loss bit-equal."""
+    import copy
+
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.models import scene_extent
+    from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
+
+    scene = _restart_scene(cuda)
+    cam, gt = scene.train_views[0]
+    cfg = TrainConfig(random_background=True)
+    step = make_train_step(RasterConfig(), cfg)
+    base = init_train_state(scene.init_model, cfg,
+                            float(scene_extent(scene.init_model)))
+    base, _ = step(base, cam, gt, 1)
+    (a, ma), (b, mb) = [step(copy.deepcopy(base), cam, gt, 1)
+                        for _ in range(2)]
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
+    for ga, gb in zip(a.optimizer.param_groups, b.optimizer.param_groups):
+        sa = a.optimizer.state[ga["params"][0]]
+        sb = b.optimizer.state[gb["params"][0]]
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[key], sb[key]), (ga["name"], key)
+    for f in ("grad2d_sum", "grad2d_count", "max_radii"):
+        assert torch.equal(getattr(a.densify, f), getattr(b.densify, f)), f
+    assert a.step == b.step == 2
+    assert torch.equal(ma["loss"], mb["loss"])
