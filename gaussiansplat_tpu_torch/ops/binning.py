@@ -29,6 +29,7 @@ from ..config import RasterConfig
 from .kernels.expand import expand_pairs_cuda, expand_pairs_torch, popcount
 from .kernels.segreduce import segment_reduce_pairs_cuda, segment_reduce_pairs_torch
 from .projection import Projected
+from ..utils.logging import span
 
 I32 = torch.int32
 
@@ -316,9 +317,10 @@ class _GatherSorted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dsorted):
         b = ctx.binning
-        dpayload = reduce_pair_grads(dsorted.contiguous(), b.depth_order,
-                                     b.sorted_pos, b.seg_offsets, b.num_pairs,
-                                     ctx.impl)
+        with span("gs.gather.bwd"):
+            dpayload = reduce_pair_grads(dsorted.contiguous(), b.depth_order,
+                                         b.sorted_pos, b.seg_offsets,
+                                         b.num_pairs, ctx.impl)
         return dpayload, None, None
 
 

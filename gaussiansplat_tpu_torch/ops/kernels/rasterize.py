@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from ...config import RasterConfig
+from ...utils.logging import span
 from ..tile_raster import (
     RasterOut,
     image_to_tiles,
@@ -84,19 +85,22 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dimg, dtrans):
-        sorted_payload, tile_starts, background, out_tiles = ctx.saved_tensors
-        width, height, cfg, impl, tile_row0, tile_rows = ctx.args
-        cot_tiles, dbg = _image_cotangents(dimg, dtrans, out_tiles, background,
-                                           cfg.tile_size)
-        bwd = rasterize_backward_cuda if impl == "cuda" else rasterize_backward_torch
-        dsorted = bwd(sorted_payload, tile_starts, cot_tiles, out_tiles, width,
-                      height, cfg, tile_row0=tile_row0, tile_rows=tile_rows)
-        # Rows past the last tile's segment belong to no tile: K2 leaves them
-        # unwritten.
-        p = sorted_payload.shape[0]
-        valid = torch.arange(p, dtype=torch.int32,
-                             device=dsorted.device) < tile_starts[-1]
-        dsorted.masked_fill_(~valid[:, None], 0.0)
+        with span("gs.raster.bwd"):
+            sorted_payload, tile_starts, background, out_tiles = ctx.saved_tensors
+            width, height, cfg, impl, tile_row0, tile_rows = ctx.args
+            cot_tiles, dbg = _image_cotangents(dimg, dtrans, out_tiles,
+                                               background, cfg.tile_size)
+            bwd = (rasterize_backward_cuda if impl == "cuda"
+                   else rasterize_backward_torch)
+            dsorted = bwd(sorted_payload, tile_starts, cot_tiles, out_tiles,
+                          width, height, cfg, tile_row0=tile_row0,
+                          tile_rows=tile_rows)
+            # Rows past the last tile's segment belong to no tile: K2 leaves
+            # them unwritten.
+            p = sorted_payload.shape[0]
+            valid = torch.arange(p, dtype=torch.int32,
+                                 device=dsorted.device) < tile_starts[-1]
+            dsorted.masked_fill_(~valid[:, None], 0.0)
         return dsorted, None, dbg, None, None, None, None, None, None
 
 

@@ -15,6 +15,7 @@ import torch
 from .binning import TileBinning, resolve_impl
 from .kernels.rasterize import rasterize_tiles
 from .tile_raster import RasterOut
+from ..utils.logging import span
 
 
 def rasterize_payload(
@@ -32,7 +33,10 @@ def rasterize_payload(
     differentiable w.r.t. `payload` and `background` (backward: K2, then the
     gather's K3 reduce, or their plain versions with impl='torch')."""
     impl = resolve_impl(impl, payload.device)
-    return rasterize_tiles(
-        binning.gather_payload(payload, impl), binning.tile_starts, background,
-        width, height, cfg, impl, tile_row0=tile_row0, tile_rows=tile_rows,
-    )
+    with span("gs.gather"):
+        sorted_payload = binning.gather_payload(payload, impl)
+    with span("gs.raster"):
+        return rasterize_tiles(
+            sorted_payload, binning.tile_starts, background, width, height,
+            cfg, impl, tile_row0=tile_row0, tile_rows=tile_rows,
+        )

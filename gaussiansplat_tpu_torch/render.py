@@ -7,6 +7,11 @@
                        reduce, ops/binning.reduce_pair_grads)
   rasterize           (the K1 forward kernel; backward: the K2 kernel)
 
+Each stage is a span (utils/logging.py) of the call's `gs.render`:
+`gs.project` (twice: the projection, then the payload), `gs.bin`
+(counters `pairs` and `pair_slots`, the pairs binned and the slots the
+gather and the pair sort run over), `gs.gather`, `gs.raster`.
+
 It runs on the device of the model's tensors and is differentiable w.r.t.
 every model parameter, `background` and `mean2d_offset`: on CUDA tensors
 through the kernels, on CPU tensors through their plain versions. Serving
@@ -26,6 +31,7 @@ from .ops.binning import resolve_impl, bin_gaussians
 from .ops.camera import Camera
 from .ops.projection import make_payload, project_gaussians
 from .ops.raster_dispatch import rasterize_payload
+from .utils.logging import count, span
 
 
 @dataclasses.dataclass
@@ -54,23 +60,35 @@ def render(
     gradient (densification statistics)."""
     cfg = cfg or RasterConfig()
     device = model.device
-    if sh_degree is None:
-        sh_degree = model.sh_degree
-    if background is None:
-        background = torch.zeros((3,), dtype=torch.float32, device=device)
-    if camera.device != device:
-        camera = camera.to(device)
-    impl = resolve_impl(impl if impl is not None else cfg.impl, device)
+    with span("gs.render", device):
+        if sh_degree is None:
+            sh_degree = model.sh_degree
+        if background is None:
+            background = torch.zeros((3,), dtype=torch.float32, device=device)
+        if camera.device != device:
+            camera = camera.to(device)
+        impl = resolve_impl(impl if impl is not None else cfg.impl, device)
 
-    proj = project_gaussians(
-        model.means, model.quats, model.log_scales, model.logit_opacities,
-        model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
-    )
-    if mean2d_offset is not None:
-        proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
-    binning = bin_gaussians(proj, camera.width, camera.height, cfg, impl=impl)
-    out = rasterize_payload(make_payload(proj), binning, background,
-                            camera.width, camera.height, cfg, impl)
+        with span("gs.project"):
+            proj = project_gaussians(
+                model.means, model.quats, model.log_scales,
+                model.logit_opacities, model.sh, camera, cfg,
+                sh_degree=sh_degree, alive=model.alive,
+            )
+            if mean2d_offset is not None:
+                proj = dataclasses.replace(proj,
+                                           mean2d=proj.mean2d + mean2d_offset)
+        with span("gs.bin"):
+            binning = bin_gaussians(proj, camera.width, camera.height, cfg,
+                                    impl=impl)
+            count("pairs", binning.num_pairs)
+            count("pair_slots", binning.sorted_ranks.shape[0])
+        # The payload is the projection's too, made after the binning so
+        # that it is not held through the binning's peak of memory.
+        with span("gs.project"):
+            payload = make_payload(proj)
+        out = rasterize_payload(payload, binning, background, camera.width,
+                                camera.height, cfg, impl)
     return RenderOutput(
         image=out.image,
         transmittance=out.transmittance,

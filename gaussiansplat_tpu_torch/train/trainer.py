@@ -33,6 +33,7 @@ from ..models.densify import DensifyState, densify_step, prune_step, reset_opaci
 from ..models.gaussians import PARAM_NAMES, GaussianModel, scene_extent
 from ..ops.camera import Camera
 from ..render import render
+from ..utils.logging import span
 from .loss import photometric_loss, psnr, ssim
 
 
@@ -109,42 +110,49 @@ def make_train_step(raster_cfg: RasterConfig, cfg: TrainConfig) -> Callable:
     sets the position lr from the schedule, applies Adam in place,
     accumulates the densification statistics and counts the step. Returns
     (state, metrics); the metrics are 0-d tensors left on the device. The
-    kernels or their plain versions follow `raster_cfg.impl`."""
+    kernels or their plain versions follow `raster_cfg.impl`. The step is
+    the span `gs.step` (utils/logging.py), with `gs.render`'s spans,
+    `gs.loss`, `gs.backward` (`gs.raster.bwd` and `gs.gather.bwd` inside)
+    and `gs.optimizer` under it."""
 
     def step_fn(state: TrainState, camera: Camera, gt: torch.Tensor,
                 sh_degree: int):
         model, optimizer = state.model, state.optimizer
         device = model.device
-        if cfg.random_background:
-            background = torch.rand((3,), generator=state.generator,
-                                    device=state.generator.device).to(device)
-        elif cfg.white_background:
-            background = torch.ones((3,), dtype=torch.float32, device=device)
-        else:
-            background = torch.zeros((3,), dtype=torch.float32, device=device)
+        with span("gs.step", device):
+            if cfg.random_background:
+                background = torch.rand((3,), generator=state.generator,
+                                        device=state.generator.device).to(device)
+            elif cfg.white_background:
+                background = torch.ones((3,), dtype=torch.float32, device=device)
+            else:
+                background = torch.zeros((3,), dtype=torch.float32, device=device)
 
-        optimizer.zero_grad(set_to_none=True)
-        offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
-                             device=device, requires_grad=True)
-        out = render(model, camera, raster_cfg, sh_degree=sh_degree,
-                     background=background, mean2d_offset=offset)
-        loss = photometric_loss(out.image, gt, cfg.ssim_lambda)
-        loss.backward()
+            optimizer.zero_grad(set_to_none=True)
+            offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
+                                 device=device, requires_grad=True)
+            out = render(model, camera, raster_cfg, sh_degree=sh_degree,
+                         background=background, mean2d_offset=offset)
+            with span("gs.loss"):
+                loss = photometric_loss(out.image, gt, cfg.ssim_lambda)
+            with span("gs.backward"):
+                loss.backward()
 
-        set_position_lr(optimizer, cfg, state.extent, state.step)
-        optimizer.step()
+            with span("gs.optimizer"):
+                set_position_lr(optimizer, cfg, state.extent, state.step)
+                optimizer.step()
 
-        state.densify.update(offset.grad, out.radii)
-        state.step += 1
-        with torch.no_grad():
-            metrics = dict(
-                loss=loss.detach(),
-                psnr=psnr(out.image, gt),
-                num_pairs=out.num_pairs,
-                overflow=out.overflow,
-                max_chunks=out.max_chunks_needed,
-                num_alive=model.num_alive,
-            )
+            state.densify.update(offset.grad, out.radii)
+            state.step += 1
+            with torch.no_grad():
+                metrics = dict(
+                    loss=loss.detach(),
+                    psnr=psnr(out.image, gt),
+                    num_pairs=out.num_pairs,
+                    overflow=out.overflow,
+                    max_chunks=out.max_chunks_needed,
+                    num_alive=model.num_alive,
+                )
         return state, metrics
 
     return step_fn

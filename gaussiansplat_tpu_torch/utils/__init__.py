@@ -5,7 +5,7 @@ from .checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from .logging import MetricLogger, StageTimer, named_scope, profile_trace
+from .logging import MetricLogger, StageTimer
 from .resilience import is_transient, run_resilient
 
 __all__ = [
@@ -15,9 +15,7 @@ __all__ = [
     "import_ply",
     "is_transient",
     "latest_step",
-    "named_scope",
     "run_resilient",
-    "profile_trace",
     "restore_checkpoint",
     "save_checkpoint",
 ]

@@ -15,9 +15,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.ply import load_gaussian_ply, save_gaussian_ply
-from ..models.gaussians import from_arrays
-
 _STATE_FILE = "state.pt"
 
 
@@ -83,6 +80,10 @@ def restore_checkpoint(ckpt_dir: str, template, step: Optional[int] = None):
 def export_ply(path: str, model) -> int:
     """Write the alive gaussians as an INRIA-format PLY. Returns the number
     written."""
+    # The PLY and model imports wait for the call: the ops modules import
+    # utils (for its spans), and data and models import ops.
+    from ..data.ply import save_gaussian_ply
+
     alive = model.alive.detach().cpu().numpy()
     idx = np.nonzero(alive)[0]
     get = lambda a: a.detach().cpu().numpy()[idx]
@@ -95,5 +96,8 @@ def export_ply(path: str, model) -> int:
 
 def import_ply(path: str, capacity: Optional[int] = None, device="cuda"):
     """Load an INRIA-format PLY into a GaussianModel on `device`."""
+    from ..data.ply import load_gaussian_ply
+    from ..models.gaussians import from_arrays
+
     return from_arrays(*load_gaussian_ply(path), capacity=capacity,
                        device=device)

@@ -1,0 +1,11 @@
+"""raster_ms.train: the self device ms a step of the program's span
+`gs.raster`, the raster (`ops/raster_dispatch.py`: `rasterize_tiles`, K1
+and the compositing), averaged over the traced window's steps; none off
+CUDA. Moves train_steps_per_s.
+"""
+
+from portbench.metrics import _spans
+
+
+def read(run):
+    return _spans.self_ms(run, "train", "gs.raster")

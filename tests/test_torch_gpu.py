@@ -21,6 +21,8 @@ inputs (`ablate.contract`), each on its own launch counter.
 On a small scene, `run_resilient` around `Trainer.fit` restarts after the
 caching allocator's own out-of-memory and ends bit-equal to a straight run,
 and one training step from two copies of a state is bit-equal.
+Under torch.profiler the program's spans time a frame and a step on the
+card without a synchronizing call.
 """
 
 import numpy as np
@@ -958,3 +960,64 @@ def test_train_step_twice_bit_equal(cuda):
         assert torch.equal(getattr(a.densify, f), getattr(b.densify, f)), f
     assert a.step == b.step == 2
     assert torch.equal(ma["loss"], mb["loss"])
+
+
+def test_spans_time_the_card_without_a_sync(cuda):
+    """The program's spans under torch.profiler on the card: a frame's and
+    a step's spans have positive device ms, their self times sum to the
+    top-level span's device ms, K2's and K3's spans (autograd's device
+    thread) belong to the step under `gs.backward`, the host stamps agree
+    with the profiler's own events, and a span around a CUDA op makes no
+    synchronizing call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussiansplat_tpu_torch.config import TrainConfig
+    from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
+    from gaussiansplat_tpu_torch.utils import logging as spans
+
+    model, cam = _scene(cuda, 4096, 256, 192)
+    gt = torch.rand((192, 256, 3), device=cuda)
+    cfg = RasterConfig()
+    state = init_train_state(model, TrainConfig(), 1.0)
+    step = make_train_step(cfg, TrainConfig())
+    state, _ = step(state, cam, gt, 3)        # builds and warms every kernel
+    torch.cuda.synchronize()
+    spans.RECORDER.reset()
+    x = torch.ones(1024, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            render(model, cam, cfg)
+        state, _ = step(state, cam, gt, 3)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with spans.span("gs.probe", cuda):
+                x = x * 2
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    (frame,) = spans.calls("gs.render")
+    (train,) = spans.calls("gs.step")
+    for call in (frame, train):
+        top = call.spans[0]
+        assert all(s.device_ms > 0 for s in call.spans), call.spans[0].name
+        total = sum(s.self_ms for s in call.spans)
+        assert abs(total - top.device_ms) <= 1e-4 * top.device_ms
+    s = {x.name: x for x in train.spans}
+    for name in ("gs.raster.bwd", "gs.gather.bwd"):
+        assert s[name].parent is s["gs.backward"] and s[name].call is train
+    host = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CPU
+                and e.name().startswith("gs.")):
+            host.setdefault(e.name(), []).append(e)
+    mine = [x for c in (frame, train) for x in c.spans]
+    for name, evs in host.items():
+        ours = [x for x in mine if x.name == name]
+        if name == "gs.probe":
+            continue
+        assert len(ours) == len(evs), name
+        for x, e in zip(sorted(ours, key=lambda x: x.t0_ns),
+                        sorted(evs, key=lambda e: e.start_ns())):
+            assert abs(x.t0_ns - e.start_ns()) < 1_000_000, name
+            assert abs(x.t1_ns - e.end_ns()) < 1_000_000, name
