@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Probe: requires a CUDA card; prints `nvidia-smi` name and power limit.
-2. Build: compiles the four kernels (K4 expand, K1 forward, K2 backward,
-   K3 segment reduce) from gaussiansplat_tpu_torch/csrc (one nvcc per
-   source, in parallel) and prints the build time and the ptxas register /
-   shared-memory lines.
+2. Build: compiles the five kernels (K4 expand, the pair gather, K1
+   forward, K2 backward, K3 segment reduce) from gaussiansplat_tpu_torch/csrc
+   (one nvcc per source, in parallel) and prints the build time and the
+   ptxas register / shared-memory lines.
 3. Kernels against their plain PyTorch versions at the main paths' shapes
    (1920x1080): K4 (pair expansion) integer-equal over the whole capacity
    with 1M gaussians (packed keys) and 3M (separate streams); K1 (forward
@@ -32,7 +32,14 @@
    parameter bit-equal; then one `make_train_step` from two deep copies of
    a state one step into training: parameters, alive, Adam moments and
    step counts, densify statistics, the generator and the loss bit-equal.
-   K1-K4 on every run.
+   K1-K4 and the gather on every run.
+3c. The pair gather on the 3M scene at 1920x1080 and 3840x2160 (fx
+   scaled with the width): rows [0, num_pairs) bit-equal to its plain
+   version (two index_selects), the rows past it unwritten (a NaN-filled
+   output keeps its NaNs); timed by CUDA events beside its bytes bound
+   (136 B a pair), the plain version, and the library's two index_selects
+   over every slot and over the binned pairs only. Alone on the card:
+   `python3 -c "import chip_smoke as cs; cs.gather_phase(cs.card_line())"`.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -130,8 +137,8 @@ with the native parser; both parsers' times are printed.
 The launch counts are zeroed just before each determinism run, the
 serve, the train, the loop, the restart, the CLI-train, each giant frame's requests and the 2D steps (and in each
 rank around its render, steps and ring) and read just after; every kernel
-of the phase must have launched (K1-K4 on every training step, K4 and K1
-on every render).
+of the phase must have launched (K1-K4 and the gather on every training
+step, K4, the gather and K1 on every render).
 
 Every phase raises on failure. The last two lines are one JSON object with
 per-kernel numbers and `{"ok": true, "device": {...}}`. Exits non-zero when
@@ -646,6 +653,85 @@ def check_skewed(cfg, cam, device, card: str):
     return k4, k3
 
 
+# The pair gather's frames (phase 3c): the 3M scene at the benchmark's
+# 1080p and 4K shapes (fx scaled with the width).
+GATHER_FRAMES = ((WIDTH, HEIGHT, FX), (2 * WIDTH, 2 * HEIGHT, 2 * FX))
+# Bytes the gather must move a pair: the rank and the depth-order entry
+# read (4 B each), the payload row read and the row written (64 B each).
+GATHER_PAIR_BYTES = 136
+
+
+def check_gather(model, cam, cfg, card: str) -> dict:
+    """The pair gather against its plain version on one frame's binning:
+    rows [0, num_pairs) bit-equal, the rows past it left as they were (a
+    NaN-filled output keeps its NaNs). Timed beside its bytes bound, its
+    plain version (two index_selects over every slot) and the library's
+    two index_selects over the binned pairs only."""
+    from gaussiansplat_tpu_torch.ops.binning import bin_gaussians
+    from gaussiansplat_tpu_torch.ops.kernels.gather import (
+        gather_pairs_cuda,
+        gather_pairs_torch,
+    )
+    from gaussiansplat_tpu_torch.ops.projection import make_payload
+
+    proj = project(model, cam, cfg)
+    b = bin_gaussians(proj, cam.width, cam.height, cfg, impl="cuda")
+    payload = make_payload(proj)
+    del proj
+    if int(b.overflow) != 0:
+        raise AssertionError(f"gather {cam.width}x{cam.height}: overflow "
+                             f"{int(b.overflow)}")
+    args = (payload, b.depth_order, b.sorted_ranks, b.num_pairs)
+    p, k = b.sorted_ranks.shape[0], int(b.num_pairs)
+    out = torch.full((p, 16), float("nan"), device=payload.device)
+    got = gather_pairs_cuda(*args, out=out)
+    want = gather_pairs_torch(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:k].view(torch.int32), want[:k].view(torch.int32)):
+        raise AssertionError("the gather differs from its plain version")
+    if not bool(got[k:].isnan().all()):
+        raise AssertionError("the gather wrote rows past num_pairs")
+    del out, got, want
+    ranks = b.sorted_ranks[:k]
+    ms = cuda_ms(lambda: gather_pairs_cuda(*args), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: gather_pairs_torch(*args), reps=5)
+    library_ms = cuda_ms(lambda: payload.index_select(0, b.depth_order)
+                         .index_select(0, b.sorted_ranks), reps=5)
+    pairs_ms = cuda_ms(lambda: payload.index_select(0, b.depth_order)
+                       .index_select(0, ranks), reps=5)
+    bound_ms = k * GATHER_PAIR_BYTES / PEAK_BYTES_PER_S * 1e3
+    print(f"gather {cam.width}x{cam.height} n={payload.shape[0]} ({k} pairs "
+          f"of {p} slots, {100 * k / p:.2f}% filled): rows [0, num_pairs) "
+          f"bit-equal, the rest unwritten; {ms:.4f} ms (CUDA events), bound "
+          f"{bound_ms:.4f} ms (bytes, {GATHER_PAIR_BYTES} B a pair), plain "
+          f"{plain_ms:.4f} ms; library index_select x 2 over every slot "
+          f"{library_ms:.4f} ms, over the pairs only {pairs_ms:.4f} ms | {card}")
+    return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_pairs_ms=pairs_ms,
+                num_pairs=k, slots=p)
+
+
+def gather_phase(card: str) -> dict:
+    """Phase 3c: `check_gather` on the 3M scene at each of GATHER_FRAMES;
+    the records by frame ('1920x1080', '3840x2160')."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+
+    device = torch.device("cuda")
+    cfg = RasterConfig()
+    model = bench_scene(3_000_000, device, seed=1)
+    records = {}
+    with torch.no_grad():
+        for width, height, fx in GATHER_FRAMES:
+            cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
+                          fy=fx, width=width, height=height, device=device)
+            records[f"{width}x{height}"] = check_gather(model, cam, cfg, card)
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
 def determinism_phase(model, cam, cfg, kernels, card: str) -> dict:
     """Phase 3b: the 1080p/1M render with its gradients, and one training
     step, each run twice and held bit for bit (see the module docstring).
@@ -1042,10 +1128,11 @@ def loop(kernels, card: str):
           + ", ".join(f"{it}: {m['eval_psnr']:.4f} dB" for it, m in
                       sorted(evals.items())))
 
-    # Launches: K1-K4 on every step, K4 and K1 also on every eval render.
+    # Launches: K1-K4 and the gather on every step, K4, the gather and K1
+    # also on every eval render.
     steps, renders = tcfg.iterations, len(timer.ms["eval_view"])
-    want = {"expand": steps + renders, "forward": steps + renders,
-            "backward": steps, "segreduce": steps}
+    want = {"expand": steps + renders, "gather": steps + renders,
+            "forward": steps + renders, "backward": steps, "segreduce": steps}
     print(f"launches during the loop: {launches} for {steps} steps and "
           f"{renders} eval renders")
     for name, count in want.items():
@@ -2511,6 +2598,7 @@ def main() -> int:
     from gaussiansplat_tpu_torch.ops.kernels.build import build_all, ptxas_lines
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.gather import GATHER
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.config import RasterConfig
 
@@ -2526,7 +2614,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = build_all([EXPAND, FORWARD, BACKWARD, SEGREDUCE])
+    kernels = build_all([EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE])
     print(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
           "(nvcc -gencode arch=compute_90a,code=sm_90a, one process each)")
     for k in kernels:
@@ -2557,15 +2645,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3b. determinism: counts zeroed just before each run, read just after
-    determinism = determinism_phase(model, bench_cam, cfg,
-                                    [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    determinism = determinism_phase(model, bench_cam, cfg, kernels, card)
     torch.cuda.empty_cache()
 
+    # 3c. the pair gather at the 3M scene's 1080p and 4K shapes
+    gather = gather_phase(card)
+
     # 4. serve: counts zeroed just before, read just after
-    EXPAND.launches = 0
-    FORWARD.launches = 0
+    for k in (EXPAND, GATHER, FORWARD):
+        k.launches = 0
     times, native = serve(model, cfg, card)
-    launches = {"expand": EXPAND.launches, "forward": FORWARD.launches}
+    launches = {k.name: k.launches for k in (EXPAND, GATHER, FORWARD)}
     print(f"launches during serving: {launches}")
     for name, count in launches.items():
         # One launch per frame: 1 warm-up + 8 requests + 2 CLI frames.
@@ -2580,8 +2670,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. train: counts zeroed after the warm-up step, read after 5 steps
-    _, train_launches = train(model, bench_cam, cfg,
-                              [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    _, train_launches = train(model, bench_cam, cfg, kernels, card)
     del model
     torch.cuda.empty_cache()
 
@@ -2590,19 +2679,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. loop: counts zeroed just before Trainer.fit, read just after
-    loop_launches, (init_model, views) = loop(
-        [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    loop_launches, (init_model, views) = loop(kernels, card)
     torch.cuda.empty_cache()
 
     # 7b. restart after the card's out-of-memory: counts zeroed just before
     # run_resilient, read just after
-    restart_launches = restart_phase(
-        init_model, views, [EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    restart_launches = restart_phase(init_model, views, kernels, card)
     del init_model, views
     torch.cuda.empty_cache()
 
     # 8. the loop through the CLI: counts zeroed just before, read after
-    cli_train([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    cli_train(kernels, card)
 
     # 9. giant frames (int64 rects): counts zeroed before each frame's
     # render() calls, read just after
@@ -2612,7 +2699,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. 2D splats: counts zeroed just before the 20 steps, read after
-    splats = splats2d_phase([EXPAND, FORWARD, BACKWARD, SEGREDUCE], card)
+    splats = splats2d_phase(kernels, card)
 
     # 11. sharded, 2 gloo ranks on this card (each rank zeroes and reads
     # its own counts around its render and each step)
@@ -2679,6 +2766,20 @@ def main() -> int:
     for k, name in zip(record["kernels"][1:], ("forward", "backward",
                                                 "segreduce")):
         k.update(ablation[name])
+    record["kernels"].append({
+        "name": "gather_pairs", "route": "cuda",
+        "source": "gaussiansplat_tpu_torch/csrc/gather.cu",
+        "replaces": None, "launches": launches["gather"],
+        "train_launches": train_launches["gather"],
+        "loop_launches": loop_launches["gather"],
+        "restart_launches": restart_launches["gather"],
+        "determinism_launches": [
+            r["gather"] for key in ("render", "step") for r in determinism[key]],
+        "splats2d_launches": splats["launches"]["gather"],
+        "bound_by": "bytes",
+        **{f"{key}_{frame}": rec[key] for frame, rec in gather.items()
+           for key in ("ms", "bound_ms", "plain_ms", "library_ms",
+                       "library_pairs_ms", "num_pairs")}})
     for label, g in giant.items():
         tag = "int64_" + label.replace("/", "_")
         record["kernels"][0].update({

@@ -11,8 +11,9 @@
    a searchsorted gives each tile's segment.
 
 The binning itself is integer order data: no gradient flows through it. The
-payload gather into sorted pair order is differentiable by its own
-`torch.autograd.Function`, whose backward sums each gaussian's per-pair
+payload gather into sorted pair order (the pair gather kernel,
+ops/kernels/gather.py, over the binned pairs only) is differentiable by its
+own `torch.autograd.Function`, whose backward sums each gaussian's per-pair
 gradient rows in a fixed order (`reduce_pair_grads`, with the K3 segment
 reduce kernel, ops/kernels/segreduce.py) instead of autograd's scatter-add.
 """
@@ -27,6 +28,7 @@ import torch
 
 from ..config import RasterConfig
 from .kernels.expand import expand_pairs_cuda, expand_pairs_torch, popcount
+from .kernels.gather import gather_pairs_cuda, gather_pairs_torch
 from .kernels.segreduce import segment_reduce_pairs_cuda, segment_reduce_pairs_torch
 from .projection import Projected
 from ..utils.logging import span
@@ -252,7 +254,10 @@ def expand_compacted(c: CompactedRects, impl: str):
 @dataclasses.dataclass
 class TileBinning:
     """Sorted (tile, depth)-keyed pair list with per-tile segment offsets.
-    Pair indices are depth ranks; `depth_order` maps rank -> original index."""
+    Pair indices are depth ranks; `depth_order` maps rank -> original index.
+    The valid pairs are the slots [0, num_pairs), and tile_starts[-1] is
+    num_pairs: the gathered payload's rows past it are left unwritten on
+    CUDA, and no reader may use them."""
 
     sorted_ranks: torch.Tensor  # (P,) int32 depth rank per pair (garbage past num_pairs)
     depth_order: torch.Tensor   # (N,) int32 depth rank -> original gaussian index
@@ -265,8 +270,10 @@ class TileBinning:
 
     def gather_payload(self, payload: torch.Tensor,
                        impl: str = "auto") -> torch.Tensor:
-        """Per-gaussian payload rows in sorted pair order (two gathers: N
-        rows into depth order, then P pairs from that table).
+        """Per-gaussian payload rows in sorted pair order, (P, 16):
+        payload[depth_order][sorted_ranks]. With 'cuda' the gather kernel
+        writes only the rows below num_pairs and leaves the rest unwritten
+        (nothing reads them); the plain version ('torch') fills every row.
 
         Differentiable: the backward is `reduce_pair_grads`, with the K3
         kernel ('cuda') or its plain version ('torch'); 'auto' picks by the
@@ -306,13 +313,16 @@ def reduce_pair_grads(
 
 
 class _GatherSorted(torch.autograd.Function):
-    """payload[depth_order][sorted_ranks]; backward: reduce_pair_grads."""
+    """payload[depth_order][sorted_ranks], by the gather kernel ('cuda':
+    rows past num_pairs unwritten) or its plain version ('torch'); backward:
+    reduce_pair_grads, which zeroes the cotangent rows past num_pairs."""
 
     @staticmethod
     def forward(ctx, payload, binning, impl):
         ctx.binning, ctx.impl = binning, impl
-        return payload.index_select(0, binning.depth_order).index_select(
-            0, binning.sorted_ranks)
+        gather = gather_pairs_cuda if impl == "cuda" else gather_pairs_torch
+        return gather(payload.contiguous(), binning.depth_order,
+                      binning.sorted_ranks, binning.num_pairs)
 
     @staticmethod
     def backward(ctx, dsorted):

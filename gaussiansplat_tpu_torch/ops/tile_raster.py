@@ -135,6 +135,7 @@ def rasterize_forward_torch(
     tiles_x, tiles_y = tile_grid(width, height, ts)
     num_tiles = tiles_x * (tiles_y if tile_rows is None else tile_rows)
     device = sorted_payload.device
+    p = sorted_payload.shape[0]
     log_eps = log_trans_eps(cfg)
     if ablate == "dmaonly":
         start, end = tile_starts[:-1].to(torch.int64), tile_starts[1:].to(torch.int64)
@@ -145,11 +146,6 @@ def rasterize_forward_torch(
         out[:, OUT_STOP] = n_chunks.to(torch.float32)[:, None]
         return out
 
-    # Aligned windows may reach up to cs rows past the last pair.
-    payload = torch.cat([
-        sorted_payload,
-        torch.zeros((cs, PAYLOAD_DIM), dtype=sorted_payload.dtype, device=device),
-    ])
     idx = torch.arange(px, device=device)
     xl = (idx % ts).to(torch.float32)[None, :, None]
     yl = (idx // ts).to(torch.float32)[None, :, None]
@@ -176,9 +172,15 @@ def rasterize_forward_torch(
             if not bool(active.any()):
                 break
             gidx = base[:, None] + ci * cs + lane[None, :]          # (B, CS)
-            chunk = payload[gidx.clamp(max=payload.shape[0] - 1)]  # (B, CS, 16)
             in_seg = (gidx >= start[:, None]) & (gidx < end[:, None]) \
                 & active[:, None]
+            # Aligned windows reach rows outside the tile's segment, up to cs
+            # past the last pair; those rows count as zero and are never
+            # used, since the gather kernel leaves the ones past the last
+            # segment unwritten.
+            chunk = torch.where(in_seg[..., None],
+                                sorted_payload[gidx.clamp(max=p - 1)],
+                                0.0)                                 # (B, CS, 16)
             mx = (chunk[..., 0] - ox)[:, None, :]
             my = (chunk[..., 1] - oy)[:, None, :]
             ca = chunk[..., 2][:, None, :]
@@ -246,10 +248,6 @@ def rasterize_backward_torch(
     device = sorted_payload.device
     p = sorted_payload.shape[0]
 
-    payload = torch.cat([
-        sorted_payload,
-        torch.zeros((cs, PAYLOAD_DIM), dtype=sorted_payload.dtype, device=device),
-    ])
     out = torch.zeros((p, PAYLOAD_DIM), dtype=torch.float32, device=device)
     idx = torch.arange(px, device=device)
     xl = (idx % ts).to(torch.float32)[None, :, None]
@@ -277,9 +275,15 @@ def rasterize_backward_torch(
         for ci in reversed(range(int(n_live.max().item()) if t.numel() else 0)):
             active = ci < n_live
             gidx = base[:, None] + ci * cs + lane[None, :]          # (B, CS)
-            chunk = payload[gidx.clamp(max=payload.shape[0] - 1)]  # (B, CS, 16)
             in_seg = (gidx >= start[:, None]) & (gidx < end[:, None]) \
                 & active[:, None]
+            # Aligned windows reach rows outside the tile's segment, up to cs
+            # past the last pair; those rows count as zero and are never
+            # used, since the gather kernel leaves the ones past the last
+            # segment unwritten.
+            chunk = torch.where(in_seg[..., None],
+                                sorted_payload[gidx.clamp(max=p - 1)],
+                                0.0)                                 # (B, CS, 16)
             mx = (chunk[..., 0] - ox)[:, None, :]
             my = (chunk[..., 1] - oy)[:, None, :]
             ca = chunk[..., 2][:, None, :]

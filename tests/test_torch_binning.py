@@ -1,7 +1,10 @@
 """Port parity of tile binning: the port's plain binning (including the plain
 version of the K4 expansion kernel) is fed the JAX reference's `Projected`
 arrays, so float rounding in projection cannot move a tile boundary, and
-every integer field must equal JAX `bin_gaussians` up to `num_pairs`."""
+every integer field must equal JAX `bin_gaussians` up to `num_pairs`. The
+plain version of the pair gather must give the reference's gathered rows
+up to `num_pairs`, and the gather kernel's wrapper must refuse what the
+kernel does not take before anything is built."""
 
 import bisect
 import re
@@ -32,6 +35,11 @@ from gaussiansplat_tpu_torch.ops.kernels.expand import (
     expand_pairs_torch,
     popcount,
     warp_count_le,
+)
+from gaussiansplat_tpu_torch.ops.kernels.gather import (
+    GATHER,
+    gather_pairs_cuda,
+    gather_pairs_torch,
 )
 
 FULL = ("depth_order", "tile_starts", "seg_offsets", "num_pairs", "overflow")
@@ -253,3 +261,79 @@ def test_expand_launch_shape_matches_the_kernel():
     threads = int(re.search(r"kThreads = (\d+);", src).group(1))
     per = int(re.search(r"kSlotsPerThread = (\d+);", src).group(1))
     assert (per, threads * per) == (SLOTS_PER_THREAD, SLOTS_PER_BLOCK)
+
+
+def _gather_case(name):
+    """(JAX projected, width, height, binning kwargs) of a gather case."""
+    if name == "separate_streams":
+        jp, *_ = _fake_proj(70_000, 8160, 4064, seed=5, n_valid=16,
+                            max_r=8160 / 32)
+        return jp, 8160, 4064, dict(capacity=4096)
+    if name == "no_pairs":
+        jp, *_ = _fake_proj(300, 160, 96, seed=2, n_valid=0)
+        return jp, 160, 96, {}
+    kw = dict(capacity=256) if name == "overflow" else {}
+    return _jax_proj(), 160, 96, kw
+
+
+@pytest.mark.parametrize("name", ["packed_keys", "separate_streams",
+                                  "no_pairs", "overflow"])
+def test_gather_pairs_torch_matches_reference(name):
+    """The plain gather on the port's binning gives the reference's
+    `gather_payload` rows (payload[depth_order][sorted_ranks]) bit for bit
+    on the pairs [0, num_pairs), in both key regimes, with no pairs and
+    with every slot filled by an overflow."""
+    jp, width, height, kw = _gather_case(name)
+    bt, bj = _both(jp, width, height, **kw)
+    n, p = bt.depth_order.shape[0], bt.sorted_ranks.shape[0]
+    payload = np.random.default_rng(11).standard_normal((n, 16)).astype(
+        np.float32)
+    want = np.asarray(bj.gather_payload(jnp.asarray(payload), impl="xla"))
+    got = gather_pairs_torch(torch.from_numpy(payload), bt.depth_order,
+                             bt.sorted_ranks, bt.num_pairs)
+    npairs = int(bt.num_pairs)
+    assert npairs == int(bj.num_pairs)
+    assert tuple(got.shape) == want.shape == (p, 16)
+    assert (npairs == 0) == (name == "no_pairs")
+    assert (npairs == p) == (name == "overflow")
+    if name == "separate_streams":
+        c = compact_rects(port_projected(jp), width, height, RasterConfig(),
+                          **kw)
+        assert not c.packed_keys
+    np.testing.assert_array_equal(got.numpy()[:npairs].view(np.int32),
+                                  want[:npairs].view(np.int32))
+
+
+def _gather_inputs(case):
+    """Small CPU inputs of the gather wrapper, one of them broken by
+    `case`."""
+    t = dict(payload=torch.zeros((8, 16)),
+             depth_order=torch.arange(8, dtype=torch.int32),
+             sorted_ranks=torch.zeros((32,), dtype=torch.int32),
+             num_pairs=torch.tensor(5, dtype=torch.int32))
+    if case == "payload_dtype":
+        t["payload"] = t["payload"].double()
+    elif case == "rank_dtype":
+        t["sorted_ranks"] = t["sorted_ranks"].long()
+    elif case == "payload_width":
+        t["payload"] = torch.zeros((8, 12))
+    elif case == "not_contiguous":
+        t["payload"] = torch.zeros((8, 32))[:, ::2]
+    return t
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA tensors"),
+    ("payload_dtype", "float32"),
+    ("rank_dtype", "int32"),
+    ("payload_width", "16 channels"),
+    ("not_contiguous", "contiguous"),
+])
+def test_gather_pairs_cuda_refuses(case, match):
+    """The kernel's wrapper raises ValueError on CPU tensors, a wrong
+    dtype, payload rows of another width and non-contiguous input, before
+    it builds or launches anything."""
+    before = GATHER.launches
+    with pytest.raises(ValueError, match=match):
+        gather_pairs_cuda(**_gather_inputs(case))
+    assert GATHER.launches == before and GATHER._lib is None

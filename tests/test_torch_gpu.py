@@ -23,6 +23,10 @@ caching allocator's own out-of-memory and ends bit-equal to a straight run,
 and one training step from two copies of a state is bit-equal.
 Under torch.profiler the program's spans time a frame and a step on the
 card without a synchronizing call.
+The pair gather writes the rows [0, num_pairs) bit for bit as its plain
+version (two index_selects) and leaves the rest as they were; a render
+whose gather output starts as NaN gives the index_select path's image,
+transmittance and gradients bit for bit, so no reader uses those rows.
 """
 
 import numpy as np
@@ -55,6 +59,11 @@ from gaussiansplat_tpu_torch.ops.kernels.forward import (
     FORWARD,
     rasterize_forward_cuda,
     rasterize_forward_torch,
+)
+from gaussiansplat_tpu_torch.ops.kernels.gather import (
+    GATHER,
+    gather_pairs_cuda,
+    gather_pairs_torch,
 )
 from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     GROUPS,
@@ -388,16 +397,110 @@ def test_segment_reduce_matches_plain(cuda):
 
 
 def test_backward_launches_each_kernel_once(cuda):
+    kernels = (EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE)
     model, cam = _scene(cuda, 2048, 256, 192)
-    counts = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
+    counts = [k.launches for k in kernels]
     out = render(model, cam, impl="cuda")
     out.image.sum().backward()
     torch.cuda.synchronize()
-    after = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
-    assert [a - c for a, c in zip(after, counts)] == [1, 1, 1, 1]
+    after = [k.launches for k in kernels]
+    assert [a - c for a, c in zip(after, counts)] == [1, 1, 1, 1, 1]
     for name, prm in model.trainable().items():
         assert torch.isfinite(prm.grad).all(), name
     assert float(model.means.grad.abs().max()) > 0
+
+
+def _gather_case(device, name):
+    """(payload, depth_order, sorted_ranks, num_pairs) of a gather case:
+    synthetic indices with M payload rows, N ranks and P slots, or a
+    binning of a scene."""
+    g = torch.Generator().manual_seed(21)
+    synthetic = {  # name: (M, N, P, num_pairs)
+        "no_pairs": (3000, 3000, 5000, 0),
+        "ragged_tail": (3000, 3000, 5003, 4097),
+        "every_slot": (3000, 3000, 5003, 5003),
+        "more_payload_rows": (5000, 3000, 5003, 4000),
+        "fewer_payload_rows": (1000, 3000, 5003, 4000),
+    }
+    if name in synthetic:
+        m, n, p, k = synthetic[name]
+        order = (torch.randperm(m, generator=g)[:n] if m >= n
+                 else torch.randint(0, m, (n,), generator=g))
+        ranks = torch.randint(0, n, (p,), generator=g)
+        return (torch.randn((m, 16), generator=g).to(device),
+                order.to(torch.int32).to(device),
+                ranks.to(torch.int32).to(device),
+                torch.tensor(k, dtype=torch.int32, device=device))
+    n, width, height = ((70_000, 8160, 4064) if name == "separate_streams"
+                        else (4096, 256, 192))
+    cfg = RasterConfig()
+    model, cam = _scene(device, n, width, height, fx=0.5 * width)
+    with torch.no_grad():
+        proj = _project(model, cam, cfg)
+        b = bin_gaussians(proj, width, height, cfg, impl="cuda")
+        if name == "overflow":
+            b = bin_gaussians(proj, width, height, cfg, impl="cuda",
+                              capacity=int(b.num_pairs) // 2)
+            assert int(b.overflow) > 0
+        return make_payload(proj), b.depth_order, b.sorted_ranks, b.num_pairs
+
+
+@pytest.mark.parametrize("name", ["packed_keys", "separate_streams",
+                                  "overflow", "no_pairs", "ragged_tail",
+                                  "every_slot", "more_payload_rows",
+                                  "fewer_payload_rows"])
+def test_gather_matches_plain(cuda, name):
+    """The gather kernel's rows [0, num_pairs) are its plain version's bit
+    for bit, and the rows past num_pairs keep what the output held."""
+    payload, order, ranks, num_pairs = _gather_case(cuda, name)
+    p, k = ranks.shape[0], int(num_pairs)
+    out = torch.full((p, 16), float("nan"), device=cuda)
+    before = GATHER.launches
+    got = gather_pairs_cuda(payload, order, ranks, num_pairs, out=out)
+    want = gather_pairs_torch(payload, order, ranks, num_pairs)
+    torch.cuda.synchronize()
+    assert got is out and GATHER.launches == before + 1
+    assert torch.equal(got[:k].view(torch.int32), want[:k].view(torch.int32))
+    assert bool(got[k:].isnan().all())
+
+
+def test_unwritten_gather_rows_are_never_read(cuda, monkeypatch):
+    """A render whose gather output starts as NaN gives the index_select
+    path's image, transmittance and every leaf's gradient bit for bit."""
+    from gaussiansplat_tpu_torch.ops import binning
+
+    model, cam = _scene(cuda, 2048, 256, 192, seed=4)
+    g = torch.Generator().manual_seed(5)
+    target = torch.rand((192, 256, 3), generator=g).to(cuda)
+    tails = []
+
+    def nan_filled(payload, order, ranks, num_pairs):
+        out = torch.full((ranks.shape[0], 16), float("nan"), device=cuda)
+        out = gather_pairs_cuda(payload, order, ranks, num_pairs, out=out)
+        tails.append(out[int(num_pairs):])
+        return out
+
+    def index_select(payload, order, ranks, num_pairs):
+        return gather_pairs_torch(payload, order, ranks, num_pairs)
+
+    results = {}
+    for label, gather in (("kernel", nan_filled), ("index_select", index_select)):
+        monkeypatch.setattr(binning, "gather_pairs_cuda", gather)
+        model.zero_grad(set_to_none=True)
+        bg = torch.tensor([0.3, 0.1, 0.6], device=cuda, requires_grad=True)
+        out = render(model, cam, background=bg, impl="cuda")
+        loss = ((out.image - target) ** 2).mean() + 0.1 * out.transmittance.mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        results[label] = dict(
+            image=out.image.detach(), trans=out.transmittance.detach(),
+            background=bg.grad,
+            **{k: p.grad.clone() for k, p in model.trainable().items()})
+    (tail,) = tails
+    assert tail.shape[0] > 0 and bool(tail.isnan().all())
+    for key, want in results["index_select"].items():
+        got = results["kernel"][key]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), key
 
 
 def test_render_grads_cuda_match_torch(cuda):
