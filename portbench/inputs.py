@@ -1,7 +1,9 @@
 """A cell's inputs, made from the seed: the scene, the camera poses and,
 for training, the views' order and targets. Configuration and traffic
-files say which generator and with what parameters; the same seed gives
-the same inputs. Both the program and the reference are handed these.
+files say which generator and with what parameters; the program file
+(portbench/programs/) makes the scene and the targets, this module the
+traffic. The same seed gives the same inputs. Both the program and the
+reference are handed these.
 """
 
 from __future__ import annotations
@@ -72,20 +74,6 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _scene(config: dict, seed: int, device):
-    sc = config["scene"]
-    if sc["kind"] == "bench":
-        s = sc["sizing"]
-        return scenes.bench_scene(sub_seed(seed, 0), sc["n"], sc["sh_degree"],
-                                  sc["opacity"], sc["scale_range"],
-                                  s["width"], s["height"], s["fx"],
-                                  sc["sh_rest_std"], device)
-    if sc["kind"] == "quality":
-        return scenes.quality_init(seed, sc["init_points"], sc["capacity"],
-                                   sc["sh_degree"], sc["init_opacity"], device)
-    raise ValueError(f"unknown scene kind {sc['kind']!r}")
-
-
 ORIGIN, UP = (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)
 
 
@@ -116,43 +104,13 @@ def _views(config: dict, tr: dict, rng: np.random.Generator) -> List[Pose]:
     raise ValueError(f"unknown views kind {v['kind']!r}")
 
 
-def _targets(config: dict, tr: dict, params, alive, poses, seed: int,
-             device) -> List[torch.Tensor]:
-    rc = R.Raster.from_dict(config["raster"])
-    kind = tr["targets"]["kind"]
-    if kind == "sh_dc_noise":
-        g = torch.Generator(device=device)
-        g.manual_seed(sub_seed(seed, 4))
-        src = dict(params)
-        src["sh_dc"] = params["sh_dc"] + tr["targets"]["std"] * torch.randn(
-            params["sh_dc"].shape, generator=g, device=device)
-        deg, render = tr["sh_degree"], "tiled"
-    elif kind == "ground_truth":
-        gt = config["ground_truth"]
-        src, alive = scenes.quality_gt(seed, gt["n_points"], gt["sh_degree"],
-                                       device)
-        deg, render = gt["sh_degree"], "dense"
-    else:
-        raise ValueError(f"unknown targets kind {kind!r}")
-    from .reference import oracle
-
-    out = []
-    with R.fp32_math():
-        for pose in poses:
-            cam = ref_camera(pose, device)
-            proj = R.project(src, alive, cam, rc, deg)
-            if render == "dense":
-                img = oracle.render_dense(proj, cam, rc)[0]
-            else:
-                img = R.render(proj, cam, rc)[0]
-            out.append(img.contiguous())
-    return out
-
-
-def make(cell, seed: int, device) -> Inputs:
+def make(cell, program, seed: int, device) -> Inputs:
+    """The cell's inputs: the program file's scene and, for training, its
+    targets; the poses, the views' order and the background from the
+    traffic mix."""
     config, tr = cell.config, cell.traffic
     t0 = time.perf_counter()
-    params, alive = _scene(config, seed, device)
+    params, alive = program.scene(config, seed, device)
     sync(device)
     t1 = time.perf_counter()
     rng = np.random.default_rng(sub_seed(seed, 1))
@@ -170,7 +128,7 @@ def make(cell, seed: int, device) -> Inputs:
     order: List[int] = []
     while len(order) < ORDER_LENGTH:
         order += order_rng.permutation(len(poses)).tolist()
-    targets = _targets(config, tr, params, alive, poses, seed, device)
+    targets = program.targets(config, tr, params, alive, poses, seed, device)
     sync(device)
     from .reference.train import extent_of
 

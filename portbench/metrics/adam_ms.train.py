@@ -1,12 +1,16 @@
 """adam_ms.train: device milliseconds a step of the kernels launched
 inside torch's `Optimizer.step#Adam.step` range, from the trace, averaged
-over the traced window's steps. Moves train_steps_per_s.
+over the traced window's steps; on several cards, the slowest rank's.
+Moves train_steps_per_s.
 """
 
 
 def read(run):
-    if run.kind != "train" or not run.trace.adam_s:
-        return None
-    if max(run.trace.adam_s) <= 0:
-        return None
-    return 1e3 * sum(run.trace.adam_s) / len(run.trace.adam_s)
+    per_rank = []
+    for r in run.ranks:
+        if r.kind != "train" or not r.trace.adam_s:
+            return None
+        if max(r.trace.adam_s) <= 0:
+            return None
+        per_rank.append(1e3 * sum(r.trace.adam_s) / len(r.trace.adam_s))
+    return max(per_rank)

@@ -1,10 +1,12 @@
 """idle_share.serve: the share of the traced window in which the card ran
 nothing: 1 - (union of kernel, copy and memset intervals) / window, from
-torch.profiler's device trace. Moves frames_per_s.
+torch.profiler's device trace; on several cards, the mean over the
+ranks. Moves frames_per_s.
 """
 
 
 def read(run):
-    if run.kind != "serve" or run.trace.busy_s <= 0:
+    if run.kind != "serve" or any(r.trace.busy_s <= 0 for r in run.ranks):
         return None
-    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
+    return sum(100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
+               for r in run.ranks) / len(run.ranks)

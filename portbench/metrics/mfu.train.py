@@ -3,7 +3,8 @@
 The operations a step of these inputs needs (reference/counts.py
 `train_flops`, on the reference's counts of the steps it followed,
 averaged), times the steps the traced window completed, over the window's
-host-clock seconds and the 67 TFLOP/s peak. Moves train_steps_per_s.
+host-clock seconds and the 67 TFLOP/s peak of each card the cell runs
+on. Moves train_steps_per_s.
 """
 
 from portbench.reference import counts, peaks
@@ -14,4 +15,6 @@ def read(run):
         return None
     flops = sum(counts.train_flops(run.alive, run.sh_degree, run.pixels, c)
                 for c in run.counts) / len(run.counts)
-    return 100.0 * flops * run.calls / run.window_s / peaks.PEAK_FP32_FLOPS
+    chips = len(run.ranks)
+    return (100.0 * flops * run.calls / run.window_s
+            / (peaks.PEAK_FP32_FLOPS * chips))

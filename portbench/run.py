@@ -15,9 +15,13 @@ with --trace 1 `breakdown` and `traced`, then `card` and, last, `checks`
 (each number compared, with its limit). The same numbers are the last
 lines of standard error.
 
+A cell whose `chips` is above 1 runs as one process a card
+(portbench/ranks.py): this process starts them through torch's elastic
+launcher, each with torchrun's environment, and prints rank 0's lines.
+
 Exits 3 without a result when torch sees no CUDA card or fewer than the
-cell asks for, and non-zero when the run loaded jax, jaxlib, flax or
-gaussiansplat_tpu.
+cell asks for, 2 when the cell's files are not there, and non-zero when
+the run loaded jax, jaxlib, flax or gaussiansplat_tpu or a rank failed.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ def result_line(cell, out, trace: bool, device: str, readers) -> dict:
     else:
         metrics = {m["name"]: dict(value=out.end_to_end[m["name"]],
                                    unit=m["unit"]) for m in cell.end_to_end}
-    cuda = device == "cuda"
+    cuda = torch.device(device).type == "cuda"
     dev = dict(platform="gpu" if cuda else "cpu",
                kind=torch.cuda.get_device_name(0) if cuda else "cpu",
                count=cell.chips, memory_peak_bytes=out.memory_peak_bytes)
@@ -97,7 +101,9 @@ def result_line(cell, out, trace: bool, device: str, readers) -> dict:
                failed=out.failed, metrics=metrics, device=dev)
     if trace:
         red = out.run.trace
-        dev["busy_s"] = red.busy_s
+        # Device-busy seconds averaged over the cards; rank 0's window.
+        dev["busy_s"] = (sum(r.trace.busy_s for r in out.run.ranks)
+                         / len(out.run.ranks))
         dev["window_s"] = red.window_s
         res["breakdown"] = dict(device_ops=[list(x) for x in red.device_ops],
                                 idle_gaps=[list(x) for x in red.idle_gaps])
@@ -111,41 +117,94 @@ def result_line(cell, out, trace: bool, device: str, readers) -> dict:
 def main(argv=None, root: Path = ROOT, device: str = "cuda") -> int:
     t_start = process_start()
     args = parse(argv)
-    import torch
+    from portbench import cells, ranks
 
-    from portbench import cells, drive, harness
+    try:
+        cell = cells.load(args.workload, root)
+    except (KeyError, ValueError, FileNotFoundError) as e:
+        print(f"portbench: {e.args[0]}", file=sys.stderr)
+        return 2
+    if device == "cuda" and not require_chip(cell.chips):
+        return 3
+    if cell.chips == 1:
+        rc, out, err = one_rank(args, cell, device, t_start, ranks.SOLO)
+    else:
+        try:
+            rc, out, err = ranks.launch(
+                cell.chips, rank_main,
+                (args, root, device, t_start, os.getpid()))
+        except ranks.JobFailed as e:
+            print(e.args[0], file=sys.stderr, flush=True)
+            return 5
+    from portbench import harness
 
-    parts = dict(import_s=time.perf_counter() - t_start)
-    cell = cells.load(args.workload, root)
-    if device == "cuda":
-        if not require_chip(cell.chips):
-            return 3
-        # One intra-op thread: the host-bound cells' rate varies less when
-        # no idle pool of threads contends with the launching thread.
-        torch.set_num_threads(1)
-        t = time.perf_counter()
-        torch.cuda.init()
-        torch.zeros(1, device="cuda")
-        parts["cuda_init_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        drive.load_kernels()
-        parts["kernels_s"] = time.perf_counter() - t
-    readers = cells.readers(cell) if args.trace else {}
-    out = harness.run(cell, args.seed, args.seconds, bool(args.trace),
-                      device, t_start, parts)
-    res = result_line(cell, out, bool(args.trace), device, readers)
     bad = harness.forbidden_modules()
     if bad:
-        print(f"portbench: the run loaded {', '.join(bad)}", file=sys.stderr)
-        return 4
-    print("setup_parts " + json.dumps(out.parts), flush=True)
-    for name, c in out.checks.items():
-        verdict = "ok" if c["value"] <= c["limit"] else "OVER"
-        print(f"check {name} {c['value']!r} limit {c['limit']!r} {verdict}",
-              file=sys.stderr)
+        rc, out, err = 4, [], [f"portbench: the run loaded {', '.join(bad)}"]
+    for line in err:
+        print(line, file=sys.stderr)
     sys.stderr.flush()
-    print(json.dumps(res), flush=True)
-    return 0
+    for line in out:
+        print(line)
+    sys.stdout.flush()
+    return rc
+
+
+def rank_main(args, root: Path, device: str, t_start: float, launcher: int):
+    """One rank of a cell on several cards, as ranks.launch starts it."""
+    from portbench import cells, ranks
+
+    device = ranks.start_rank(launcher, device)
+    os.dup2(2, 1)  # only the launcher writes standard output
+    cell = cells.load(args.workload, root)
+    return one_rank(args, cell, device, t_start, ranks.Group(args.seconds))
+
+
+def one_rank(args, cell, device: str, t_start: float, peers):
+    """This rank's run: (exit code, lines of standard output, lines of
+    standard error); rank 0's make the result."""
+    import torch
+
+    from portbench import cells, harness, ranks
+
+    program = cells.program(cell)
+    parts = dict(import_s=time.perf_counter() - t_start)
+    if peers.world > 1 or device != "cpu":
+        # One intra-op thread: the host-bound cells' rate varies less when
+        # no idle pool of threads contends with the launching thread, and
+        # the ranks of a job share the host's cores.
+        torch.set_num_threads(1)
+    if torch.device(device).type == "cuda":
+        t = time.perf_counter()
+        torch.cuda.init()
+        torch.zeros(1, device=device)
+        parts["cuda_init_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        program.load_kernels()
+        parts["kernels_s"] = time.perf_counter() - t
+    readers = cells.readers(cell) if args.trace else {}
+    out = harness.run(cell, program, args.seed, args.seconds,
+                      bool(args.trace), device, t_start, parts, peers)
+    if peers.rank:
+        bad = harness.forbidden_modules()
+        if bad:
+            raise RuntimeError(f"portbench: rank {peers.rank} loaded "
+                               f"{', '.join(bad)}")
+        peers.gather(out)
+        ranks.close_group()
+        return 0, [], []
+    outs = peers.gather(out)
+    ranks.close_group()
+    out = harness.merge(outs)
+    res = result_line(cell, out, bool(args.trace), device, readers)
+    # After the readers, which run in this process.
+    bad = harness.forbidden_modules()
+    if bad:
+        return 4, [], [f"portbench: the run loaded {', '.join(bad)}"]
+    err = [f"check {name} {c['value']!r} limit {c['limit']!r} "
+           f"{'ok' if c['value'] <= c['limit'] else 'OVER'}"
+           for name, c in out.checks.items()]
+    return 0, ["setup_parts " + json.dumps(out.parts), json.dumps(res)], err
 
 
 if __name__ == "__main__":

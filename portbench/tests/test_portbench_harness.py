@@ -27,7 +27,7 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from portbench import cells, control, drive, run  # noqa: E402
+from portbench import cells, control, run  # noqa: E402
 from tiny import make_root  # noqa: E402
 
 SEED = 4294967311
@@ -119,17 +119,18 @@ def test_the_control_and_the_faults_fail_the_limits(root, workload):
 
 
 def _broken_frame(real):
-    def frame(m, pose, cfg, device):
-        out = real(m, pose, cfg, device)
-        out.image = out.image.clone()
-        out.image[:8, :8] += 0.05
+    def frame(server, pose, device):
+        out = real(server, pose, device)
+        image = out.keep[0].clone()
+        image[:8, :8] += 0.05
+        out.keep = (image, *out.keep[1:])
         return out
     return frame
 
 
 def _unchanged_state(real):
-    def trainer(inputs, config, device):
-        tr = real(inputs, config, device)
+    def trainer(cell, inputs, device):
+        tr = real(cell, inputs, device)
         step = tr.step
 
         def frozen(state, cam, gt, sh):
@@ -157,11 +158,14 @@ def _half_batch(real):
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
     from gaussiansplat_tpu_torch.train import trainer as program_trainer
 
+    program = cells.program(cells.load("tiny_serve", root))
     if fault == "frame_altered":
-        monkeypatch.setattr(drive, "serve_frame", _broken_frame(drive.serve_frame))
+        monkeypatch.setattr(program, "serve_call",
+                            _broken_frame(program.serve_call))
         workload = "tiny_serve"
     elif fault == "state_unchanged":
-        monkeypatch.setattr(drive, "trainer", _unchanged_state(drive.trainer))
+        monkeypatch.setattr(program, "train_setup",
+                            _unchanged_state(program.train_setup))
         workload = "tiny_qtrain"
     else:
         monkeypatch.setattr(program_trainer, "photometric_loss",

@@ -61,3 +61,35 @@ print(rc, sorted(m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "0 []"
+
+
+def test_a_reader_that_loads_jax_leaves_no_result(tmp_path):
+    """The check comes after the per-layer readers, which run in the
+    process that prints the result."""
+    script = f"""
+import json, sys
+sys.path[:0] = [{str(REPO)!r}, {str(PB / 'tests')!r}]
+from pathlib import Path
+from tiny import make_root
+from portbench import run
+root = make_root(Path({str(tmp_path)!r}))
+(root / "portbench" / "metrics" / "loads_flax.serve.py").write_text(
+    "import sys, types\\n"
+    "def read(run):\\n"
+    "    sys.modules['flax'] = types.ModuleType('flax')\\n"
+    "    return 1.0\\n")
+spec = json.loads((root / "BENCHMARK.json").read_text())
+spec["per_layer"].append(dict(name="loads_flax.serve", unit="%",
+                              better="higher", source="program_counter",
+                              layer="binning", moves="frames_per_s",
+                              workloads=["tiny_serve"]))
+(root / "BENCHMARK.json").write_text(json.dumps(spec))
+sys.exit(run.main(["--workload", "tiny_serve", "--seed", "3", "--seconds",
+                   "0.2", "--trace", "1"], root=root, device="cpu"))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"correct"' not in out.stdout
+    assert out.stderr.strip().splitlines()[-1] == (
+        "portbench: the run loaded flax")

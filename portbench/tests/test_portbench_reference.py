@@ -23,7 +23,8 @@ from gaussiansplat_tpu_torch.render import render  # noqa: E402
 from gaussiansplat_tpu_torch.train import init_train_state, make_train_step  # noqa: E402
 from gaussiansplat_tpu_torch.train.loss import photometric_loss  # noqa: E402
 
-from portbench import drive, inputs  # noqa: E402
+from portbench import inputs  # noqa: E402
+from portbench.programs import gauss3d  # noqa: E402
 from portbench.reference import render as R  # noqa: E402
 from portbench.reference import scenes  # noqa: E402
 from portbench.reference import train as ref_train  # noqa: E402
@@ -67,7 +68,7 @@ def _ref_forward(params, alive, pose, deg=3):
 def test_forward_matches_the_port(scene):
     params, alive, pose = scene
     with torch.no_grad():
-        out = render(_port(params, alive), drive.camera(pose, "cpu"),
+        out = render(_port(params, alive), gauss3d.camera(pose, "cpu"),
                      RasterConfig(**RASTER))
     img, trans = _ref_forward(params, alive, pose)
     assert float(img.max()) > 0.1
@@ -87,7 +88,7 @@ def test_every_gradient_matches_the_port(scene):
     params, alive, pose = scene
     gt = _target(params, alive, pose)
     m = _port(params, alive)
-    out = render(m, drive.camera(pose, "cpu"), RasterConfig(**RASTER))
+    out = render(m, gauss3d.camera(pose, "cpu"), RasterConfig(**RASTER))
     photometric_loss(out.image, gt, 0.2).backward()
 
     cam = inputs.ref_camera(pose, "cpu")
@@ -114,10 +115,10 @@ def test_one_adam_update_matches_the_port(scene):
     gt = _target(params, alive, pose)
     extent = ref_train.extent_of(params["means"], alive)
     m = _port(params, alive)
-    tcfg = TrainConfig(**{k: TRAIN[k] for k in drive.TRAIN_FIELDS})
+    tcfg = TrainConfig(**{k: TRAIN[k] for k in gauss3d.TRAIN_FIELDS})
     state = init_train_state(m, tcfg, extent)
     step = make_train_step(RasterConfig(**RASTER), tcfg)
-    state, met = step(state, drive.camera(pose, "cpu"), gt, 3)
+    state, met = step(state, gauss3d.camera(pose, "cpu"), gt, 3)
 
     want = ref_train.follow(params, alive,
                             [(inputs.ref_camera(pose, "cpu"), gt,

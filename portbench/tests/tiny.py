@@ -1,5 +1,6 @@
 """A checkout-shaped copy of the benchmark with tiny cells for the CPU:
-BENCHMARK.json and portbench/'s data files, with three cells cut to a few
+BENCHMARK.json and portbench/'s data and program files, with three cells
+cut to a few
 thousand gaussians at 48-64 pixels (16 px tiles). The harness's code is
 imported from the repository; only the data is the copy's. The quality
 scene's configuration, traffic and limits files are not in BENCHMARK.json
@@ -32,7 +33,7 @@ def _write(path: Path, obj) -> None:
 def make_root(dest: Path) -> Path:
     """Build the copy under `dest`; returns it."""
     pb = dest / "portbench"
-    for sub in ("configs", "traffic", "limits", "metrics"):
+    for sub in ("configs", "traffic", "limits", "metrics", "programs"):
         shutil.copytree(REPO / "portbench" / sub, pb / sub)
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     cfg = lambda name: json.loads((pb / "configs" / f"{name}.json").read_text())
