@@ -24,7 +24,12 @@ from .gauss2d import (
     shard_model_2d,
 )
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh, make_mesh, mesh_from_config
-from .render import make_tile_sharded_render, render_strip, resolve_shard_impl
+from .render import (
+    make_tile_sharded_render,
+    render_strip,
+    resolve_shard_impl,
+    strip_bounds,
+)
 from .train import SSIM_HALO, make_sharded_train_step, pad_targets, stack_cameras
 
 __all__ = [
@@ -55,4 +60,5 @@ __all__ = [
     "shard_model",
     "shard_model_2d",
     "stack_cameras",
+    "strip_bounds",
 ]

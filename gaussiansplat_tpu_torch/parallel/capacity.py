@@ -10,16 +10,18 @@ memory? It also gives the collective bytes a step moves
 
 The byte counts are those of the arrays this port allocates: the model's
 parameters with its bool `alive` buffer, the Adam moments of the six
-parameter groups, the exchange's send and receive buffers, and the
-binning and raster streams of one strip. `fits` applies a slack factor
-for everything else a step holds at its peak (autograd's saved
-projection intermediates, sort temporaries, the allocator's rounding).
+parameter groups, the exchange's send and receive buffers, what the
+projection keeps for its backward, and one strip's binning: its
+compaction (the tile-survivor masks of every row it bins) and, after it,
+its pair streams. The step's peak is in one of the two binning phases:
+the pair streams where every gaussian is binned (one card), the
+compaction where the strip bins the `n_strips x send_cap` rows of its
+arrivals (several cards). `fits` applies a slack factor for the rest (the
+pack's and the step's small temporaries, the allocator's rounding).
 
-The budget and the slack are measured, not assumed: `chip_smoke.py`'s HBM
-phase bisects the single-card ceiling by out-of-memory probes
-(`bisect_ceiling`, one subprocess a probe), each a 1920x1080 gauss-sharded
-training step on one rank at N gaussians. No figure here comes from the
-reference's TPU.
+The slack is measured, not assumed: a rank's peak, decomposed by the
+allocator's history, at 8M gaussians a card at 1920x1080, SH 3, on one
+card and on four. No figure here comes from the reference's TPU.
 """
 
 from __future__ import annotations
@@ -38,13 +40,27 @@ HBM_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 # 85,017,493,504 B (79.18 GiB) of it on HBM_CARD.
 HBM_NOMINAL_BYTES = 80 << 30
 # Measured on HBM_CARD by chip_smoke.py's HBM phase: a 1920x1080 step at
-# 23,497,129 gaussians fit and one at 24,115,474 ran out of memory. The
-# budget is the peak device memory (`torch.cuda.max_memory_allocated`) of
-# the step that fit; the slack is that peak over the step's closed-form
-# `total_bytes`. (At 1M gaussians over 2 ranks the ratio is 1.367: the
-# fixed costs weigh more at a small N.)
+# 23,497,129 gaussians fit and one at 24,115,474 ran out of memory, with
+# the code of that time. The budget is the peak device memory
+# (`torch.cuda.max_memory_allocated`) of the step that fit.
 HBM_EFFECTIVE_BYTES = 76_613_107_712
-HBM_SLACK = 1.0147
+# A rank's peak over `total_bytes`, at 8M gaussians a card, 1920x1080, SH
+# 3 (less the inputs a harness holds beside the step): 42,612,352,000 B
+# on each of four cards (32M, send_fraction 0.46), the larger reading, and
+# 29,895,577,600 B on one card (ratio 0.96: there the exchange's buffers
+# and the payload are not live at the peak).
+HBM_SLACK = 1.0204
+
+# Bytes a binned row holds at the peak of the binning's compaction
+# (`ops/binning.compact_rects`): the tile-survivor mask's (rows,
+# MASK_TILES) temporaries and the per-row rects. Measured equal on the
+# card (the allocator's history) and on the CPU (the profiler).
+_COMPACTION_ROW_BYTES = 1964
+# Bytes a gaussian's projection keeps for its backward, the payload
+# included (`ops/projection.project_gaussians`, `make_payload`, the model's
+# SH concatenation), by SH degree: measured on the CPU by the profiler
+# (650 at SH 3 against 636 on the card).
+_PROJECTION_BYTES = {0: 314, 1: 394, 2: 486, 3: 650}
 
 # Per-gaussian f32 channels of the model (models/gaussians.py): means 3 +
 # quats 4 + log_scales 3 + logit_opacities 1 (+ the alive bool, 1 byte).
@@ -67,9 +83,11 @@ class CapacityPlan:
     params_bytes: int          # parameter shard and alive mask
     optimizer_bytes: int       # Adam exp_avg + exp_avg_sq
     exchange_bytes: int        # all_to_all send + receive buffers
+    projection_bytes: int      # what the projection keeps for its backward
     raster_bytes: int          # strip binning streams, sorted payload, grads
+    compaction_bytes: int      # the strip binning's compaction of its rows
     image_bytes: int           # K1/K2 blocks, gathered frame, target
-    total_bytes: int
+    total_bytes: int           # the step's peak: the larger binning phase
 
     def fits(self, hbm_bytes: int = HBM_EFFECTIVE_BYTES,
              slack: float = HBM_SLACK) -> bool:
@@ -84,8 +102,10 @@ class CapacityPlan:
             f"{self.local_capacity / 1e6:.2f}M per chip — params "
             f"{self.params_bytes / g:.2f} GiB, opt {self.optimizer_bytes / g:.2f}"
             f" GiB, exchange {self.exchange_bytes / g:.2f} GiB (send_cap "
-            f"{self.send_cap}), raster {self.raster_bytes / g:.2f} GiB, "
-            f"image {self.image_bytes / g:.2f} GiB -> total "
+            f"{self.send_cap}), projection {self.projection_bytes / g:.2f} "
+            f"GiB, raster {self.raster_bytes / g:.2f} GiB or compaction "
+            f"{self.compaction_bytes / g:.2f} GiB, image "
+            f"{self.image_bytes / g:.2f} GiB -> total "
             f"{self.total_bytes / g:.2f} GiB"
         )
 
@@ -139,6 +159,9 @@ def plan_gauss_sharded(
     raster = (arrivals * _PAYLOAD_CH * 4
               + pair_cap * 4 * 4
               + pair_cap * _PAYLOAD_CH * 4 * 2)
+    # Before the pair streams exist, the compaction of the same rows.
+    compaction = arrivals * _COMPACTION_ROW_BYTES
+    projection = local * _PROJECTION_BYTES[sh_degree]
 
     # K1's output block and K2's cotangent block of the strip, the gathered
     # (padded) frame and transmittance, and the full target.
@@ -149,7 +172,8 @@ def plan_gauss_sharded(
     image = (strip_px * NOUT * 2 + d * rows * ts * width * 4
              + height * width * 3) * 4
 
-    total = params + optimizer + exchange + raster + image
+    total = (params + optimizer + exchange + projection
+             + max(raster, compaction) + image)
     return CapacityPlan(
         n_gaussians=n_gaussians,
         n_devices=d,
@@ -161,7 +185,9 @@ def plan_gauss_sharded(
         params_bytes=params,
         optimizer_bytes=optimizer,
         exchange_bytes=exchange,
+        projection_bytes=projection,
         raster_bytes=raster,
+        compaction_bytes=compaction,
         image_bytes=image,
         total_bytes=total,
     )
@@ -318,11 +344,18 @@ def min_devices_for(
     cfg: Optional[RasterConfig] = None,
     max_devices: int = 4096,
 ) -> int:
-    """Smallest power-of-two gauss-mesh size whose per-card step fits."""
+    """Smallest power-of-two gauss-mesh size whose per-card step fits.
+
+    Each strip bins all `D x send_cap = send_fraction x N` rows it may
+    receive, so at a fixed fraction a card's compaction does not shrink
+    with D: a D-card mesh is planned at send_fraction min(1, 2 / D), twice
+    the share of an even strip (the default 0.5 at D = 4), and a render or
+    step on that mesh needs the same."""
     d = 1
     while d <= max_devices:
         if plan_gauss_sharded(
-            n_gaussians, d, width, height, sh_degree, cfg
+            n_gaussians, d, width, height, sh_degree, cfg,
+            send_fraction=min(1.0, 2.0 / d),
         ).fits(hbm_bytes):
             return d
         d *= 2

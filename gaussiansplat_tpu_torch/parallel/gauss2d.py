@@ -74,7 +74,8 @@ def make_gauss2d_render(
     def f(model, cameras: Camera, background):
         img, _, aux = view_fn(model, camera_at(cameras, mesh.data_index),
                               background, with_aux=True)
-        imgs = _GatherStrips.apply(img[None], data_group, mesh.data_index)
+        imgs = _GatherStrips.apply(img[None], data_group, mesh.data_index,
+                                   list(range(mesh.data + 1)))
         overflow = all_reduce(aux["overflow"], "sum", data_group)
         return imgs, dict(overflow=overflow)
 

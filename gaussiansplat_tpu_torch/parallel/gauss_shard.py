@@ -45,8 +45,9 @@ from ..ops.projection import (
     project_gaussians,
 )
 from ..ops.raster_dispatch import rasterize_payload
+from ..utils.logging import count, span
 from .capacity import arrival_pair_capacity, plan_gauss_sharded
-from .mesh import GAUSS_AXIS, AllToAll, Mesh, all_reduce, make_grid
+from .mesh import GAUSS_AXIS, AllToAll, Mesh, all_reduce, make_grid, off_card_bytes
 from .render import _GatherStrips, check_strips, resolve_shard_impl
 
 I32 = torch.int32
@@ -118,31 +119,42 @@ def pack_to_destinations(
     slot = torch.arange(send_cap, device=device)[None, :]          # (1, K)
     gather_pos = torch.clamp(starts[:-1, None] + slot, 0, m - 1)
     ok = slot < seg_len[:, None]                                    # (n_dest, K)
-    gidx = torch.where(ok, sorted_ids[gather_pos].long(), 0)
+    # A slot past its run reads a row of its own, zeroed below, and not
+    # row 0: the gather's backward (an accumulating index_put, which adds
+    # each run of one repeated row serially) would otherwise add millions
+    # of zeros into row 0 one by one.
+    spare = (torch.arange(n_dest * send_cap, device=device)
+             % payload.shape[0]).reshape(n_dest, send_cap)
+    gidx = torch.where(ok, sorted_ids[gather_pos].long(), spare)
     send = torch.where(ok[..., None], payload[gidx], 0.0)
     return send, overflow
 
 
 def pack_by_strip(
     payload: torch.Tensor,   # (n, 16) local projected payload
-    n_strips: int,
-    strip_h: int,            # pixels per strip
+    bounds,                  # n_strips + 1 pixel-row bounds of the strips
     send_cap: int,           # per-destination row capacity
     expand_cap: int,         # (gaussian, strip) pair capacity
 ):
-    """Route local payload rows to destination strips: a fixed-shape
-    (n_strips, send_cap, 16) send buffer plus the rows dropped. A gaussian
-    whose y-extent (the per-axis ellipse extent PAYLOAD_RY, as the
-    receiver's binning rects) spans k strips is duplicated into k entries;
-    the (gaussian, strip) entries past `expand_cap` are dropped and counted
-    as the reference's fixed-length `jnp.repeat` does."""
+    """Route local payload rows to destination strips, strip s being the
+    pixel rows [bounds[s], bounds[s + 1]): a fixed-shape (n_strips,
+    send_cap, 16) send buffer, the rows dropped and the (gaussian, strip)
+    entries asked for before any cap. A gaussian whose y-extent (the
+    per-axis ellipse extent PAYLOAD_RY, as the receiver's binning rects)
+    spans k strips is duplicated into k entries; the entries past
+    `expand_cap` are dropped and counted as the reference's fixed-length
+    `jnp.repeat` does."""
     n = payload.shape[0]
+    n_strips = len(bounds) - 1
     device = payload.device
     mean_y = payload[:, PAYLOAD_MY].detach()
     ry = payload[:, PAYLOAD_RY].detach()
-    s0 = torch.clamp(torch.floor((mean_y - ry) / strip_h), 0, n_strips).to(I32)
-    s1 = torch.clamp(torch.floor((mean_y + ry) / strip_h) + 1, 0,
-                     n_strips).to(I32)
+    edges = torch.as_tensor(bounds, dtype=mean_y.dtype, device=device)
+    # The first strip that the extent reaches and one past the last: the
+    # strips that end at or above its top, and those that start at or
+    # above its bottom.
+    s0 = torch.searchsorted(edges[1:], mean_y - ry, right=True).to(I32)
+    s1 = torch.searchsorted(edges[:-1], mean_y + ry, right=True).to(I32)
     s1 = torch.where(ry > 0, torch.maximum(s1, s0), s0)
     counts = (s1 - s0).long()
 
@@ -160,7 +172,7 @@ def pack_by_strip(
 
     send, send_overflow = pack_to_destinations(payload, dest, ids, n_strips,
                                                send_cap)
-    return send, (expand_overflow + send_overflow).to(I32)
+    return send, (expand_overflow + send_overflow).to(I32), total
 
 
 def render_gauss_sharded_strip(
@@ -169,8 +181,7 @@ def render_gauss_sharded_strip(
     cfg: RasterConfig,
     sh_degree: int,
     background: torch.Tensor,
-    n_strips: int,
-    rows: int,
+    bounds,
     send_cap: int,
     mesh: Mesh,
     axis_name: str = GAUSS_AXIS,
@@ -178,34 +189,53 @@ def render_gauss_sharded_strip(
     impl: str = "auto",
 ):
     """One rank's part: project the local shard, exchange payloads over the
-    mesh's `axis_name` group, bin (K4) and rasterize (K1) this rank's strip
-    of `rows` tile rows. Returns (strip image, strip transmittance, aux);
-    aux has the local radii and this rank's overflow counts."""
+    mesh's `axis_name` group, bin (K4) and rasterize (K1) this rank's strip,
+    tile rows [bounds[d], bounds[d + 1]) for gauss index d (`bounds`, the
+    n_strips + 1 tile-row bounds of `strip_bounds`). Returns (strip image,
+    strip transmittance, aux); aux has the local radii and this rank's
+    overflow counts. Spans (utils/logging.py): `gs.project`, `gs.pack`,
+    `gs.exchange` (its backward `gs.exchange.bwd`), `gs.bin`, then the
+    gather's and the raster's. `gs.exchange` counts `sent_rows` (the
+    (gaussian, strip) entries packed, before the caps), `send_slots` (the
+    send buffer's rows), `pack_overflow` and `exchange_bytes`."""
     ts = cfg.tile_size
-    strip_h = rows * ts
+    n_strips = len(bounds) - 1
     d = mesh.axis_index(axis_name)
+    row0, rows = bounds[d], bounds[d + 1] - bounds[d]
 
-    proj = project_gaussians(
-        model.means, model.quats, model.log_scales, model.logit_opacities,
-        model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
-    )
-    if mean2d_offset is not None:
-        proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
-    payload = make_payload(proj)                        # (n_local, 16)
+    with span("gs.project"):
+        proj = project_gaussians(
+            model.means, model.quats, model.log_scales, model.logit_opacities,
+            model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
+        )
+        if mean2d_offset is not None:
+            proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
+        payload = make_payload(proj)                    # (n_local, 16)
     n_local = payload.shape[0]
-    send, pack_overflow = pack_by_strip(
-        payload, n_strips, strip_h, send_cap, expand_cap=2 * n_local)
-    # (n_strips, K, 16): row block s goes to strip s's owner.
-    recv = AllToAll.apply(send, mesh.group(axis_name))
+    with span("gs.pack"):
+        send, pack_overflow, sent_rows = pack_by_strip(
+            payload, [b * ts for b in bounds], send_cap,
+            expand_cap=2 * n_local)
+    group = mesh.group(axis_name)
+    with span("gs.exchange"):
+        count("sent_rows", sent_rows)
+        count("send_slots", n_strips * send_cap)
+        count("pack_overflow", pack_overflow)
+        count("exchange_bytes", off_card_bytes(send, group))
+        # (n_strips, K, 16): row block s goes to strip s's owner.
+        recv = AllToAll.apply(send, group, "gs.exchange.bwd")
     flat = recv.reshape(n_strips * send_cap, PAYLOAD_DIM)
-    binning = bin_gaussians(
-        payload_to_projected(flat), camera.width, camera.height, cfg,
-        tile_row0=d * rows, tile_rows=rows,
-        capacity=arrival_pair_capacity(cfg, n_strips, send_cap), impl=impl,
-    )
+    with span("gs.bin"):
+        binning = bin_gaussians(
+            payload_to_projected(flat), camera.width, camera.height, cfg,
+            tile_row0=row0, tile_rows=rows,
+            capacity=arrival_pair_capacity(cfg, n_strips, send_cap), impl=impl,
+        )
+        count("pairs", binning.num_pairs)
+        count("pair_slots", binning.sorted_ranks.shape[0])
     out = rasterize_payload(
         flat, binning, background, camera.width, camera.height, cfg, impl,
-        tile_row0=d * rows, tile_rows=rows,
+        tile_row0=row0, tile_rows=rows,
     )
     aux = dict(
         radii=proj.radius,
@@ -236,7 +266,11 @@ def make_gauss_sharded_render(
     mesh's gauss axis (`shard_model`). Every rank gets the whole (height,
     width) frame (the strips gathered over the gauss group); a loss that
     every rank computes alike on it back-propagates into each rank's own
-    shard. The tile rows must divide evenly across the gauss axis.
+    shard. Rank d of the gauss axis rasterizes the tile rows [bounds[d],
+    bounds[d + 1]) of `render.strip_bounds`: the first strips are one tile
+    row longer where the rows do not divide evenly. The call is the span
+    `gs.render` (utils/logging.py), with the spans of
+    `render_gauss_sharded_strip` and `gs.strips` under it.
 
     aux: `radii` (local), and over the gauss group the summed `overflow`,
     `pack_overflow` and `bin_overflow` and the largest `max_chunks_needed`.
@@ -249,7 +283,8 @@ def make_gauss_sharded_render(
     `aux["pack_overflow"]`, or set `check_overflow` to print a warning on
     stderr whenever the exchange dropped payload rows."""
     nd = mesh.axis_size(GAUSS_AXIS)
-    rows = check_strips(cfg, height, nd, GAUSS_AXIS)
+    bounds = check_strips(cfg, height, nd, GAUSS_AXIS)
+    px = [b * cfg.tile_size for b in bounds]
     group = mesh.group(GAUSS_AXIS)
 
     def resolve_send_cap(global_capacity: int) -> int:
@@ -261,18 +296,22 @@ def make_gauss_sharded_render(
         ).send_cap
 
     def f(model, camera, background, mean2d_offset=None, with_aux=False):
+        with span("gs.render", model.device):
+            return _render(model, camera, background, mean2d_offset, with_aux)
+
+    def _render(model, camera, background, mean2d_offset, with_aux):
         if camera.device != model.device:
             camera = camera.to(model.device)
         index = mesh.axis_index(GAUSS_AXIS)
         img, trans, aux = render_gauss_sharded_strip(
-            model, camera, cfg, sh_degree, background, nd, rows,
+            model, camera, cfg, sh_degree, background, bounds,
             resolve_send_cap(model.capacity * nd), mesh,
             mean2d_offset=mean2d_offset,
             impl=resolve_shard_impl(impl if impl is not None else cfg.impl,
                                     model.device),
         )
-        img = _GatherStrips.apply(img, group, index)[:height]
-        trans = _GatherStrips.apply(trans, group, index)[:height]
+        img = _GatherStrips.apply(img, group, index, px)[:height]
+        trans = _GatherStrips.apply(trans, group, index, px)[:height]
         if not (with_aux or check_overflow):
             return img, trans
         sums = all_reduce(torch.stack([aux["overflow"], aux["pack_overflow"],

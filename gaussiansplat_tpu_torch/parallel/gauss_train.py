@@ -21,6 +21,7 @@ from ..models.gaussians import GaussianModel
 from ..ops.camera import Camera
 from ..train.loss import photometric_loss, psnr
 from ..train.trainer import TrainState, init_train_state, set_position_lr
+from ..utils.logging import span
 from .gauss_shard import GAUSS_AXIS, make_gauss_sharded_render, shard_model
 from .mesh import Mesh, all_reduce
 from .train import _background
@@ -48,15 +49,23 @@ def make_gauss_sharded_train_step(
     """Build `step(state, camera, gt) -> (state, metrics)` over sharded
     parameters (`init_gauss_sharded_state`). `gt` is the full (H, W, 3)
     target, the same on every rank. Metrics are 0-d tensors on the model's
-    device: `loss`, `psnr`, `overflow` and `max_chunks` over the gauss
-    group, and `num_alive` summed over it (with `return_grads`, also this
-    rank's gradient block)."""
+    device: `loss`, `psnr`, `overflow`, `pack_overflow` (the exchange's
+    share of `overflow`) and `max_chunks` over the gauss group, and
+    `num_alive` summed over it (with `return_grads`, also this rank's
+    gradient block). The step is the span `gs.step` (utils/logging.py),
+    as the one-card step's: `gs.render`'s spans, `gs.loss`, `gs.backward`
+    (with `gs.raster.bwd`, `gs.gather.bwd`, `gs.exchange.bwd` and
+    `gs.strips` inside) and `gs.optimizer`."""
     render_fn = make_gauss_sharded_render(
         mesh, raster_cfg, width, height, sh_degree, send_cap=send_cap,
         impl=impl)
     group = mesh.group(GAUSS_AXIS)
 
     def step(state: TrainState, camera: Camera, gt: torch.Tensor):
+        with span("gs.step", state.model.device):
+            return _step(state, camera, gt)
+
+    def _step(state: TrainState, camera: Camera, gt: torch.Tensor):
         model, optimizer = state.model, state.optimizer
         device = model.device
         # Drawn alike on every rank: one background for the whole frame.
@@ -68,11 +77,14 @@ def make_gauss_sharded_train_step(
                              device=device, requires_grad=True)
         img, _, aux = render_fn(model, camera, background,
                                 mean2d_offset=offset, with_aux=True)
-        loss = photometric_loss(img, gt, cfg.ssim_lambda)
-        loss.backward()
+        with span("gs.loss"):
+            loss = photometric_loss(img, gt, cfg.ssim_lambda)
+        with span("gs.backward"):
+            loss.backward()
 
-        set_position_lr(optimizer, cfg, state.extent, state.step)
-        optimizer.step()
+        with span("gs.optimizer"):
+            set_position_lr(optimizer, cfg, state.extent, state.step)
+            optimizer.step()
         state.densify.update(offset.grad, aux["radii"])
         state.step += 1
         with torch.no_grad():
@@ -80,6 +92,7 @@ def make_gauss_sharded_train_step(
                 loss=loss.detach(),
                 psnr=psnr(img, gt),
                 overflow=aux["overflow"],
+                pack_overflow=aux["pack_overflow"],
                 max_chunks=aux["max_chunks_needed"],
                 num_alive=all_reduce(model.num_alive, "sum", group),
             )

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..config import MeshConfig
 from ..utils import comm_bytes as cb
+from ..utils.logging import count, span
 
 DATA_AXIS = "data"
 TILE_AXIS = "tile"
@@ -223,20 +224,35 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return buf.to(t.device)
 
 
+def off_card_bytes(t: torch.Tensor, group) -> int:
+    """The bytes of t that leave the card in an `all_to_all` over `group`
+    (utils/comm_bytes.py's convention); 0 on a group of one rank."""
+    if group is None:
+        return 0
+    n = dist.get_world_size(group)
+    return cb.collective_bytes([(cb.ALL_TO_ALL, t.nbytes, n)], n)["total"]
+
+
 class AllToAll(torch.autograd.Function):
     """Differentiable `all_to_all`. Equal blocks make it its own transpose:
     the backward is the same exchange of the cotangents, which returns each
-    block's cotangent to the rank that sent the block."""
+    block's cotangent to the rank that sent the block. With `bwd_span`, the
+    backward is that span (utils/logging.py), counting its
+    `exchange_bytes`."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, bwd_span=None):
+        ctx.group, ctx.bwd_span = group, bwd_span
         out = all_to_all(t, group)
         return out.clone() if out is t else out
 
     @staticmethod
     def backward(ctx, g):
-        return all_to_all(g.contiguous(), ctx.group), None
+        if ctx.bwd_span is None:
+            return all_to_all(g.contiguous(), ctx.group), None, None
+        with span(ctx.bwd_span):
+            count("exchange_bytes", off_card_bytes(g, ctx.group))
+            return all_to_all(g.contiguous(), ctx.group), None, None
 
 
 class Permute(torch.autograd.Function):

@@ -7,12 +7,15 @@ payload and rasterizes its strip (K1; backward K2, then the gather's K3),
 and the strips are gathered into the full frame on every rank of the tile
 group. The per-gaussian parameter gradients of one strip are partial sums:
 the caller sums them over the tile group (parallel/train.py does).
+
+The strips are `strip_bounds`: where the tile rows do not divide evenly
+across the axis, the first strips are one tile row longer than the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -22,6 +25,7 @@ from ..ops.binning import bin_gaussians, resolve_impl, tile_grid
 from ..ops.camera import Camera
 from ..ops.projection import make_payload, project_gaussians
 from ..ops.raster_dispatch import rasterize_payload
+from ..utils.logging import span
 from .mesh import TILE_AXIS, Mesh, all_gather
 
 
@@ -75,33 +79,54 @@ def render_strip(
 
 
 class _GatherStrips(torch.autograd.Function):
-    """All strips of the tile group, concatenated along rows. Backward:
-    this rank's rows of the frame's cotangent, for a loss that every rank
-    of the tile group computes alike on the whole frame (the parameter
-    gradients are then per-strip partial sums, summed over the group)."""
+    """All strips of the tile group, concatenated along rows: strip i is
+    rows [bounds[i], bounds[i + 1]) of the result (`bounds`, group size + 1
+    row offsets). Each strip is padded to the longest for the `all_gather`
+    and cropped after it. Backward: this rank's rows of the frame's
+    cotangent, for a loss that every rank of the tile group computes alike
+    on the whole frame (the parameter gradients are then per-strip partial
+    sums, summed over the group). The span `gs.strips` covers both
+    directions."""
 
     @staticmethod
-    def forward(ctx, strip, group, index):
-        ctx.index, ctx.rows = index, strip.shape[0]
-        return torch.cat(all_gather(strip, group), dim=0)
+    def forward(ctx, strip, group, index, bounds):
+        with span("gs.strips"):
+            ctx.r0, ctx.r1 = bounds[index], bounds[index + 1]
+            longest = max(b - a for a, b in zip(bounds[:-1], bounds[1:]))
+            pad = torch.nn.functional.pad(
+                strip, (0, 0) * (strip.dim() - 1) + (0, longest - strip.shape[0]))
+            parts = all_gather(pad, group)
+            return torch.cat([p[:b - a] for p, a, b in
+                              zip(parts, bounds[:-1], bounds[1:])], dim=0)
 
     @staticmethod
     def backward(ctx, g):
-        r0 = ctx.index * ctx.rows
-        return g[r0:r0 + ctx.rows], None, None
+        with span("gs.strips"):
+            return g[ctx.r0:ctx.r1], None, None, None
+
+
+def strip_bounds(tiles_y: int, n: int) -> List[int]:
+    """Tile-row bounds of `n` horizontal strips of `tiles_y` tile rows:
+    strip i is rows [b[i], b[i + 1]); the first `tiles_y % n` strips are
+    one row longer than the rest."""
+    base, extra = divmod(tiles_y, n)
+    bounds = [0]
+    for i in range(n):
+        bounds.append(bounds[-1] + base + (1 if i < extra else 0))
+    return bounds
 
 
 def check_strips(cfg: RasterConfig, height: int, ntile: int,
-                 axis: str = TILE_AXIS) -> int:
-    """Tile rows per strip of the `axis` mesh axis; raises unless the tile
-    rows divide evenly."""
+                 axis: str = TILE_AXIS) -> List[int]:
+    """The tile-row bounds of the `axis` mesh axis' strips of a frame of
+    `height` pixels (`strip_bounds`); raises when there are fewer tile rows
+    than strips."""
     _, tiles_y = tile_grid(1, height, cfg.tile_size)
-    if tiles_y % ntile != 0:
+    if tiles_y < ntile:
         raise ValueError(
-            f"tile rows ({tiles_y}) must divide evenly across the {axis} axis "
-            f"({ntile}); pad the image height to a multiple of "
-            f"{cfg.tile_size * ntile} pixels")
-    return tiles_y // ntile
+            f"{tiles_y} tile rows cannot make a strip for each of the "
+            f"{ntile} ranks of the {axis} axis")
+    return strip_bounds(tiles_y, ntile)
 
 
 def make_tile_sharded_render(
@@ -118,21 +143,23 @@ def make_tile_sharded_render(
     the tile-padded one. `impl` ('auto', 'cuda', 'torch') defaults to
     `cfg.impl`."""
     ntile = mesh.tile
-    rows = check_strips(cfg, height, ntile)
+    bounds = check_strips(cfg, height, ntile)
+    px = [b * cfg.tile_size for b in bounds]
     group = mesh.group(TILE_AXIS)
 
     def f(model: GaussianModel, camera: Camera, background: torch.Tensor):
         if camera.device != model.device:
             camera = camera.to(model.device)
-        row0 = mesh.tile_index * rows
+        i = mesh.tile_index
         img, trans, _ = render_strip(
-            model, camera, cfg, sh_degree, background, row0, rows,
+            model, camera, cfg, sh_degree, background, bounds[i],
+            bounds[i + 1] - bounds[i],
             strip_pair_capacity(cfg, model.capacity, ntile),
             impl=resolve_shard_impl(impl if impl is not None else cfg.impl,
                                     model.device),
         )
-        img = _GatherStrips.apply(img, group, mesh.tile_index)
-        trans = _GatherStrips.apply(trans, group, mesh.tile_index)
+        img = _GatherStrips.apply(img, group, i, px)
+        trans = _GatherStrips.apply(trans, group, i, px)
         return img[:height], trans[:height]
 
     return f

@@ -34,7 +34,8 @@ from ..ops.camera import Camera
 from ..train.loss import ssim_map
 from ..train.trainer import TrainState, set_position_lr
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh, all_gather, all_reduce
-from .render import check_strips, render_strip, resolve_shard_impl, strip_pair_capacity
+from .render import (check_strips, render_strip, resolve_shard_impl,
+                     strip_bounds, strip_pair_capacity)
 
 # SSIM window radius: rows exchanged between neighbouring strips.
 SSIM_HALO = 5
@@ -60,11 +61,10 @@ def camera_at(cams: Camera, i: int) -> Camera:
 
 def pad_targets(gts: torch.Tensor, height: int, tile_size: int,
                 ntile: int) -> torch.Tensor:
-    """Pad (B, H, W, 3) ground truth with zero rows to the tile- and
-    strip-aligned height."""
-    tiles_y = -(-height // tile_size)
-    tiles_y = -(-tiles_y // ntile) * ntile
-    return torch.nn.functional.pad(gts, (0, 0, 0, 0, 0, tiles_y * tile_size - height))
+    """Pad (B, H, W, 3) ground truth with zero rows to the last row of the
+    `ntile` strips (`strip_bounds`): the tile-aligned height."""
+    rows = strip_bounds(-(-height // tile_size), ntile)[-1]
+    return torch.nn.functional.pad(gts, (0, 0, 0, 0, 0, rows * tile_size - height))
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -149,10 +149,10 @@ def make_sharded_train_step(
     model's device (with `return_grads`, also the summed gradients)."""
     ndata, ntile = mesh.data, mesh.tile
     ts = raster_cfg.tile_size
-    rows = check_strips(raster_cfg, height, ntile)
-    strip_h = rows * ts
-    if strip_h < SSIM_HALO:
-        raise ValueError(f"strips of {strip_h} rows are shorter than the "
+    bounds = check_strips(raster_cfg, height, ntile)
+    shortest = min(b - a for a, b in zip(bounds[:-1], bounds[1:])) * ts
+    if shortest < SSIM_HALO:
+        raise ValueError(f"strips of {shortest} rows are shorter than the "
                          f"SSIM halo ({SSIM_HALO})")
     lam = cfg.ssim_lambda
     denom = float(height * width * 3)
@@ -163,7 +163,9 @@ def make_sharded_train_step(
         model, optimizer = state.model, state.optimizer
         device = model.device
         d = mesh.data_index
-        row0 = mesh.tile_index * rows
+        row0, rows = bounds[mesh.tile_index], bounds[mesh.tile_index + 1]
+        rows -= row0
+        strip_h = rows * ts
         cam = camera_at(cams, d).to(device)
         gt = gts[d, row0 * ts:row0 * ts + strip_h].to(device)
         background = _background(cfg, state.step, d, device)

@@ -62,8 +62,9 @@ def test_exchange_and_strip_streams_match_allocations():
     proj = project_gaussians(model.means, model.quats, model.log_scales,
                              model.logit_opacities, model.sh, cam, cfg, 1,
                              model.alive)
-    send, _ = pack_by_strip(make_payload(proj), nd, h // nd, plan.send_cap,
-                            2 * plan.local_capacity)
+    send, _, _ = pack_by_strip(make_payload(proj),
+                               [s * h // nd for s in range(nd + 1)],
+                               plan.send_cap, 2 * plan.local_capacity)
     assert send.shape == (nd, plan.send_cap, 16)
     assert plan.exchange_bytes == 2 * send.nbytes
     flat = send.reshape(-1, 16)
@@ -78,6 +79,70 @@ def test_exchange_and_strip_streams_match_allocations():
                                  + 2 * gathered.nbytes)
 
 
+def _allocated(fn):
+    """(bytes still allocated after fn(), peak over it), from the
+    profiler's memory events on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        fn()
+    events = sorted((e.start_ns(), e.nbytes())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name() == "[memory]")
+    now = peak = 0
+    for _, b in events:
+        now += b
+        peak = max(peak, now)
+    return now, peak
+
+
+def test_compaction_bytes_are_the_binnings_peak():
+    """`compaction_bytes` a row is the peak of the binning's compaction
+    (the tile-survivor masks) over the rows it bins, at 1920x1080."""
+    from gaussiansplat_tpu_torch.ops.binning import compact_rects
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.ops.projection import (
+        make_payload, payload_to_projected, project_gaussians)
+
+    cfg = RasterConfig(tile_size=32, chunk_size=128, impl="torch")
+    n = 50_000
+    model = _model(n, 1)
+    cam = look_at((0, 0, -6), (0, 0, 0), fx=220.0, fy=220.0, width=1920,
+                  height=1080, device="cpu")
+    with torch.no_grad():
+        rows = payload_to_projected(make_payload(project_gaussians(
+            model.means, model.quats, model.log_scales, model.logit_opacities,
+            model.sh, cam, cfg, 1, model.alive)))
+    _, peak = _allocated(lambda: compact_rects(rows, 1920, 1080, cfg,
+                                               tile_rows=34))
+    plan = cap.plan_gauss_sharded(4 * n, 4, 1920, 1080, 1, cfg,
+                                  send_fraction=0.25)
+    assert plan.compaction_bytes == 4 * plan.send_cap * round(peak / n)
+
+
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+def test_projection_bytes_are_what_its_backward_keeps(sh_degree):
+    """`projection_bytes` a gaussian is what `project_gaussians` and
+    `make_payload` leave allocated for the backward, the payload and the
+    model's SH concatenation included."""
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+    from gaussiansplat_tpu_torch.ops.projection import (
+        make_payload, project_gaussians)
+
+    cfg = RasterConfig(tile_size=32, chunk_size=128, impl="torch")
+    n = 50_000
+    model = _model(n, sh_degree)
+    cam = look_at((0, 0, -6), (0, 0, 0), fx=220.0, fy=220.0, width=1920,
+                  height=1080, device="cpu")
+    kept = []
+    left, _ = _allocated(lambda: kept.append(make_payload(project_gaussians(
+        model.means, model.quats, model.log_scales, model.logit_opacities,
+        model.sh, cam, cfg, sh_degree, model.alive))))
+    assert kept[0].requires_grad
+    plan = cap.plan_gauss_sharded(n, 1, 64, 64, sh_degree)
+    assert plan.projection_bytes == n * round(left / n)
+
+
 def test_plan_is_monotonic_and_placement_consistent():
     totals = [cap.plan_gauss_sharded(n, 4, 1920, 1088).total_bytes
               for n in (10**5, 10**6, 10**7)]
@@ -85,11 +150,14 @@ def test_plan_is_monotonic_and_placement_consistent():
     per_card = [cap.plan_gauss_sharded(8_000_000, d, 1920, 1088).params_bytes
                 for d in (1, 2, 4, 8)]
     assert per_card == sorted(per_card, reverse=True)
+    # min_devices_for plans a D-card mesh at twice an even strip's share.
+    plan = lambda n, d: cap.plan_gauss_sharded(
+        n, d, 1920, 1088, send_fraction=min(1.0, 2.0 / d))
     for n in (2_000_000, 30_000_000, 200_000_000):
         d = cap.min_devices_for(n, 1920, 1088)
-        assert cap.plan_gauss_sharded(n, d, 1920, 1088).fits()
+        assert plan(n, d).fits()
         if d > 1:
-            assert not cap.plan_gauss_sharded(n, d // 2, 1920, 1088).fits()
+            assert not plan(n, d // 2).fits()
     with pytest.raises(ValueError):
         cap.min_devices_for(10**12, 1920, 1088, max_devices=4)
     top = cap.max_gaussians_per_chip(1920, 1080)

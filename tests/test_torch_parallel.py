@@ -4,7 +4,10 @@ parallel` on the same mesh shape (the 8-device CPU mesh of conftest.py) and
 against the port's own single-device `render` / train step. The cases of
 tests/test_parallel.py: the tile-sharded render (tile 2 and 4), uneven rows
 rejected, the (data=2, tile=2) L1 step, the halo-SSIM objective (tile 2
-and 4), and a (data=2, tile=2) run whose replicas stay bit-equal.
+and 4), and a (data=2, tile=2) run whose replicas stay bit-equal. Beside
+them, uneven strips (3 tile rows over 2 ranks, `u2`), which the reference's
+sharded paths reject: the render and the halo-SSIM step against the port's
+single device.
 
 This file is also the ranks' entry point (tests/gloo_ranks.py): the ranks
 import neither JAX nor the reference package.
@@ -21,10 +24,14 @@ from gloo_ranks import run_jobs, worker_main
 W = 64
 PARAMS = ("means", "quats", "log_scales", "logit_opacities", "sh_dc", "sh_rest")
 # The cases each job runs, in order (one process group per job).
-JOBS = {2: ["render_t2", "halo_t2"], 4: ["render_t4", "halo_t4", "l1_d2t2",
-                                       "steps_d2t2"]}
+JOBS = {2: ["render_t2", "halo_t2", "render_u2", "halo_u2"],
+        4: ["render_t4", "halo_t4", "l1_d2t2", "steps_d2t2"]}
 MESHES = {"render_t2": (1, 2), "halo_t2": (1, 2), "render_t4": (1, 4),
-          "halo_t4": (1, 4), "l1_d2t2": (2, 2), "steps_d2t2": (2, 2)}
+          "halo_t4": (1, 4), "l1_d2t2": (2, 2), "steps_d2t2": (2, 2),
+          "render_u2": (1, 2), "halo_u2": (1, 2)}
+# Uneven strips: 80 rows are 3 tile rows of 32 (the last half padding),
+# 2 and 1 over the two ranks.
+UNEVEN_H = 80
 N_STEPS = 3
 
 
@@ -90,6 +97,7 @@ def _run_case(case, inp):
     step = make_sharded_train_step(mesh, cfg, tcfg, W, h, 1,
                                    return_grads=True)
     targets = pad_targets(gts, h, cfg.tile_size, mesh.tile)
+    out["padded_rows"] = np.int64(targets.shape[1])
     for i in range(N_STEPS if case.startswith("steps") else 1):
         state, met = step(state, stack_cameras(cams), targets)
         out[f"loss{i}"] = met["loss"].numpy()
@@ -149,6 +157,10 @@ def _cases():
     gts = rng.random((2, W, W, 3), dtype=np.float32)
     cases["l1_d2t2"] = (m, [cam, _second_cam(W, W)], gts)
     cases["steps_d2t2"] = cases["l1_d2t2"]
+    cases["render_u2"] = _jax_setup(192, 128, UNEVEN_H)
+    m, cam = _jax_setup(96, W, UNEVEN_H)
+    cases["halo_u2"] = (m, [cam], rng.random((1, UNEVEN_H, W, 3),
+                                             dtype=np.float32))
     for k, v in cases.items():
         if k.startswith("render"):
             cases[k] = (v[0], [v[1]], None)
@@ -186,7 +198,12 @@ def _jax_cfg():
     return RasterConfig(tile_size=32, chunk_size=128, impl="xla")
 
 
-@pytest.mark.parametrize("ntile", [2, 4])
+def _case(kind, ntile):
+    """The case of `kind` at `ntile` strips; `u2` is the uneven case."""
+    return f"{kind}_{ntile}" if ntile == "u2" else f"{kind}_t{ntile}"
+
+
+@pytest.mark.parametrize("ntile", [2, 4, "u2"])
 def test_tile_sharded_render(runs, ntile):
     import jax
     import jax.numpy as jnp
@@ -196,21 +213,27 @@ def test_tile_sharded_render(runs, ntile):
     from test_torch_common import port_camera, port_model
 
     cases, results = runs
-    jm, (jcam,), _ = cases[f"render_t{ntile}"]
-    bg = jnp.array([0.1, 0.2, 0.3])
-    f = jax.jit(make_tile_sharded_render(make_mesh(data=1, tile=ntile),
-                                         _jax_cfg(), jcam.width, jcam.height, 1))
-    jimg, jtrans = f(jm, jcam, bg)
+    case = _case("render", ntile)
+    jm, (jcam,), _ = cases[case]
     tm = port_model(jm)
     out = render(tm, port_camera(jcam), _raster_cfg(), sh_degree=1,
                  background=torch.tensor([0.1, 0.2, 0.3]))
     (out.image ** 2).sum().backward()
     single = {k: p.grad.numpy() for k, p in tm.trainable().items()}
-    for r, res in enumerate(results[f"render_t{ntile}"]):
+    images, transes = [out.image.detach().numpy()], [out.transmittance.detach().numpy()]
+    if ntile != "u2":
+        bg = jnp.array([0.1, 0.2, 0.3])
+        f = jax.jit(make_tile_sharded_render(make_mesh(data=1, tile=ntile),
+                                             _jax_cfg(), jcam.width,
+                                             jcam.height, 1))
+        jimg, jtrans = f(jm, jcam, bg)
+        images.append(np.asarray(jimg))
+        transes.append(np.asarray(jtrans))
+    for r, res in enumerate(results[case]):
         assert res["image"].shape == (jcam.height, jcam.width, 3)
-        for want in (np.asarray(jimg), out.image.detach().numpy()):
+        for want in images:
             np.testing.assert_allclose(res["image"], want, atol=1e-5)
-        for want in (np.asarray(jtrans), out.transmittance.detach().numpy()):
+        for want in transes:
             np.testing.assert_allclose(res["trans"], want, atol=1e-5)
         _close_scaled({k: res[f"grad/{k}"] for k in single}, single, 1e-4,
                       f"rank {r} strip grads summed over the tile group")
@@ -221,10 +244,15 @@ def test_uneven_rows_rejected():
         Mesh, make_sharded_train_step, make_tile_sharded_render)
     from gaussiansplat_tpu_torch.config import TrainConfig
 
+    # Uneven strips are built (3 tile rows over 2 ranks: 2 and 1); fewer
+    # tile rows than strips are rejected.
     mesh = Mesh(1, 2, 0, None, None, None)          # shape only: no group
-    with pytest.raises(ValueError, match="divide"):
-        make_tile_sharded_render(mesh, _raster_cfg(), 96, 96, 1)   # 3 rows
-    with pytest.raises(ValueError, match="divide"):
+    make_tile_sharded_render(mesh, _raster_cfg(), 96, 96, 1)       # 3 rows
+    make_sharded_train_step(mesh, _raster_cfg(), TrainConfig(), 96, 96, 1)
+    mesh = Mesh(1, 4, 0, None, None, None)
+    with pytest.raises(ValueError, match="cannot make a strip"):
+        make_tile_sharded_render(mesh, _raster_cfg(), 96, 96, 1)
+    with pytest.raises(ValueError, match="cannot make a strip"):
         make_sharded_train_step(mesh, _raster_cfg(), TrainConfig(), 96, 96, 1)
 
 
@@ -276,31 +304,39 @@ def test_l1_step_data2_tile2(runs):
         assert res["max_radii"].max() > 0 and res["grad2d_sum"].max() > 0
 
 
-@pytest.mark.parametrize("ntile", [2, 4])
+@pytest.mark.parametrize("ntile", [2, 4, "u2"])
 def test_halo_ssim_objective(runs, ntile):
     """L1 + DSSIM at ssim_lambda 0.2: with the 5-row halo exchange the
     strip-sharded loss is the single-device loss (1e-6) and so are its
-    gradients (1e-4 of each group's largest entry)."""
+    gradients (1e-4 of each group's largest entry); the targets are padded
+    to the strips' last tile row."""
     from gaussiansplat_tpu_torch.config import TrainConfig
     from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
     from test_torch_common import port_camera, port_model
 
     cases, results = runs
-    jm, jcams, gts = cases[f"halo_t{ntile}"]
-    jloss, jgrads = _jax_sharded_step("halo", jm, jcams, gts, 1, ntile,
-                                      dict(random_background=False,
-                                           ssim_lambda=0.2))
+    case = _case("halo", ntile)
+    jm, jcams, gts = cases[case]
+    wants, jgrads = [], None
+    if ntile != "u2":
+        jloss, jgrads = _jax_sharded_step("halo", jm, jcams, gts, 1, ntile,
+                                          dict(random_background=False,
+                                               ssim_lambda=0.2))
+        wants.append(jloss)
     tcfg = TrainConfig(iterations=10, random_background=False, ssim_lambda=0.2)
     tm = port_model(jm)
     state = init_train_state(tm, tcfg, extent=1.0)
     _, met = make_train_step(_raster_cfg(), tcfg)(
         state, port_camera(jcams[0]), torch.as_tensor(gts[0]), 1)
     single = {k: p.grad.numpy() for k, p in tm.trainable().items()}
-    for r, res in enumerate(results[f"halo_t{ntile}"]):
-        for want in (jloss, float(met["loss"])):
+    wants.append(float(met["loss"]))
+    for r, res in enumerate(results[case]):
+        assert int(res["padded_rows"]) == -(-gts.shape[1] // 32) * 32
+        for want in wants:
             np.testing.assert_allclose(float(res["loss0"]), want, atol=1e-6)
         got = {k: res[f"grad/{k}"] for k in PARAMS}
-        _close_scaled(got, jgrads, 1e-4, f"rank {r} vs reference")
+        if jgrads is not None:
+            _close_scaled(got, jgrads, 1e-4, f"rank {r} vs reference")
         _close_scaled(got, single, 1e-4, f"rank {r} vs single device")
         np.testing.assert_allclose(float(res["psnr0"]), float(met["psnr"]),
                                    rtol=1e-5)
