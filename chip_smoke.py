@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Probe: requires a CUDA card; prints `nvidia-smi` name and power limit.
-2. Build: compiles the five kernels (K4 expand, the pair gather, K1
-   forward, K2 backward, K3 segment reduce) from gaussiansplat_tpu_torch/csrc
+2. Build: compiles the six kernels (K4 expand, the pair gather, K1
+   forward, K2 backward, K3 segment reduce, R rects) from
+   gaussiansplat_tpu_torch/csrc
    (one nvcc per source, in parallel) and prints the build time and the
    ptxas register / shared-memory lines.
 3. Kernels against their plain PyTorch versions at the main paths' shapes
@@ -40,6 +41,11 @@
    (136 B a pair), the plain version, and the library's two index_selects
    over every slot and over the binned pairs only. Alone on the card:
    `python3 -c "import chip_smoke as cs; cs.gather_phase(cs.card_line())"`.
+3d. R, the binning's rects, survivor masks, counts and depth keys, on the
+   same two frames: bit-equal to its plain version; timed beside its bytes
+   bound (53 B a gaussian) and the plain version, and the whole compaction
+   and binning timed with R and with the plain front. Alone on the card:
+   `python3 -c "import chip_smoke as cs; cs.rects_phase(cs.card_line())"`.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -726,6 +732,89 @@ def gather_phase(card: str) -> dict:
             cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
                           fy=fx, width=width, height=height, device=device)
             records[f"{width}x{height}"] = check_gather(model, cam, cfg, card)
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
+# Bytes R must move a gaussian: mean2d 8, conic 12, opacity 4, depth 4,
+# radius_xy 8 and valid 1 read; rect, mask, count and depth key 4 each
+# written.
+RECTS_GAUSSIAN_BYTES = 53
+
+
+def check_rects(model, cam, cfg, card: str) -> dict:
+    """R against its plain version on one frame (rect, mask, count and depth
+    key bit-equal), timed beside its bytes bound and the plain version; the
+    whole compaction (compact_rects) and binning (bin_gaussians) timed with
+    R and with the plain front."""
+    from gaussiansplat_tpu_torch.ops.binning import (
+        bin_gaussians,
+        compact_rects,
+        expand_compacted,
+        sort_pairs,
+        tile_grid,
+        tile_rects_torch,
+    )
+    from gaussiansplat_tpu_torch.ops.kernels.rects import tile_rects_cuda
+
+    proj = project(model, cam, cfg)
+    n = proj.mean2d.shape[0]
+    tiles_x, tiles_y = tile_grid(cam.width, cam.height, cfg.tile_size)
+    by, bw = tiles_y.bit_length(), tiles_x.bit_length()
+    args = (proj.mean2d, proj.conic, proj.opacity, proj.depth,
+            proj.radius_xy, proj.valid, cfg, tiles_x, tiles_y, 0, tiles_y,
+            (by, bw, by), torch.int32)
+    got = tile_rects_cuda(*args)
+    want = tile_rects_torch(*args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("rect", "mask", "count", "key"), got, want):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"R's {what} differs from its plain version")
+    pairs = int(want[2].to(torch.int64).sum())
+    del got, want
+    ms = cuda_ms(lambda: tile_rects_cuda(*args), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: tile_rects_torch(*args), reps=5)
+    compact_ms = cuda_ms(lambda: compact_rects(proj, cam.width, cam.height,
+                                               cfg, impl="cuda"), reps=5)
+    compact_plain_ms = cuda_ms(lambda: compact_rects(
+        proj, cam.width, cam.height, cfg, impl="torch"), reps=5)
+    bin_ms = cuda_ms(lambda: bin_gaussians(proj, cam.width, cam.height, cfg,
+                                           impl="cuda"), reps=5)
+    def bin_plain_front():
+        c = compact_rects(proj, cam.width, cam.height, cfg, impl="torch")
+        return sort_pairs(c, expand_compacted(c, "cuda"))
+
+    bin_plain_front_ms = cuda_ms(bin_plain_front, reps=5)
+    bound_ms = n * RECTS_GAUSSIAN_BYTES / PEAK_BYTES_PER_S * 1e3
+    print(f"R rects {cam.width}x{cam.height} n={n} ({pairs} pairs): rect, "
+          f"mask, count and key bit-equal; {ms:.4f} ms (CUDA events), bound "
+          f"{bound_ms:.4f} ms (bytes, {RECTS_GAUSSIAN_BYTES} B a gaussian), "
+          f"plain {plain_ms:.3f} ms; compact_rects {compact_ms:.3f} ms (plain "
+          f"front {compact_plain_ms:.3f}); bin_gaussians {bin_ms:.3f} ms "
+          f"(plain front {bin_plain_front_ms:.3f}) | {card}")
+    return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                compact_ms=compact_ms, compact_plain_ms=compact_plain_ms,
+                bin_ms=bin_ms, bin_plain_front_ms=bin_plain_front_ms,
+                pairs=pairs)
+
+
+def rects_phase(card: str) -> dict:
+    """Phase 3d: `check_rects` on the 3M scene at each of GATHER_FRAMES;
+    the records by frame ('1920x1080', '3840x2160')."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+
+    device = torch.device("cuda")
+    cfg = RasterConfig()
+    model = bench_scene(3_000_000, device, seed=1)
+    records = {}
+    with torch.no_grad():
+        for width, height, fx in GATHER_FRAMES:
+            cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
+                          fy=fx, width=width, height=height, device=device)
+            records[f"{width}x{height}"] = check_rects(model, cam, cfg, card)
             torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
@@ -1715,13 +1804,14 @@ def tile_worker(out: str) -> int:
     from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.parallel import (
         make_mesh, make_sharded_train_step, make_tile_sharded_render,
         pad_targets, stack_cameras)
     from gaussiansplat_tpu_torch.train import init_train_state
 
-    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE, RECTS)
     device = rank_init()
     rank = dist.get_rank()
     res = {}
@@ -1907,6 +1997,7 @@ def gauss_worker(out: str) -> int:
     from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.parallel import (
         init_gauss_sharded_state, make_depth_ring_render, make_gauss_mesh,
@@ -1914,7 +2005,7 @@ def gauss_worker(out: str) -> int:
         plan_gauss_sharded, shard_model)
     from gaussiansplat_tpu_torch.utils.comm_bytes import count_collectives
 
-    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE, RECTS)
     device = rank_init()
     rank = dist.get_rank()
     res = {"rank": rank}
@@ -2007,12 +2098,13 @@ def gauss2d_worker(out: str) -> int:
     from gaussiansplat_tpu_torch.ops.kernels.backward import BACKWARD
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
+    from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.parallel import (
         init_gauss_sharded_state, make_gauss2d_train_step, make_mesh2d,
         plan_gauss_sharded, stack_cameras)
 
-    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE, RECTS)
     device = rank_init()
     rank = dist.get_rank()
     try:
@@ -2599,6 +2691,7 @@ def main() -> int:
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
     from gaussiansplat_tpu_torch.ops.kernels.gather import GATHER
+    from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.config import RasterConfig
 
@@ -2614,7 +2707,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = build_all([EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE])
+    kernels = build_all([EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE, RECTS])
     print(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
           "(nvcc -gencode arch=compute_90a,code=sm_90a, one process each)")
     for k in kernels:
@@ -2651,11 +2744,14 @@ def main() -> int:
     # 3c. the pair gather at the 3M scene's 1080p and 4K shapes
     gather = gather_phase(card)
 
+    # 3d. R, the binning's rects, at the same shapes
+    rects = rects_phase(card)
+
     # 4. serve: counts zeroed just before, read just after
-    for k in (EXPAND, GATHER, FORWARD):
+    for k in (EXPAND, GATHER, FORWARD, RECTS):
         k.launches = 0
     times, native = serve(model, cfg, card)
-    launches = {k.name: k.launches for k in (EXPAND, GATHER, FORWARD)}
+    launches = {k.name: k.launches for k in (EXPAND, GATHER, FORWARD, RECTS)}
     print(f"launches during serving: {launches}")
     for name, count in launches.items():
         # One launch per frame: 1 warm-up + 8 requests + 2 CLI frames.
@@ -2780,6 +2876,22 @@ def main() -> int:
         **{f"{key}_{frame}": rec[key] for frame, rec in gather.items()
            for key in ("ms", "bound_ms", "plain_ms", "library_ms",
                        "library_pairs_ms", "num_pairs")}})
+    record["kernels"].append({
+        "name": "tile_rects", "route": "cuda",
+        "source": "gaussiansplat_tpu_torch/csrc/rects.cu",
+        "replaces": None, "launches": launches["rects"],
+        "train_launches": train_launches["rects"],
+        "loop_launches": loop_launches["rects"],
+        "restart_launches": restart_launches["rects"],
+        "determinism_launches": [
+            r["rects"] for key in ("render", "step") for r in determinism[key]],
+        "splats2d_launches": splats["launches"]["rects"],
+        **{f"{key}_launches": [r.get("rects", 0) for r in per_rank]
+           for key, per_rank in gauss["launches"].items()},
+        "bound_by": "bytes",
+        **{f"{key}_{frame}": rec[key] for frame, rec in rects.items()
+           for key in ("ms", "bound_ms", "plain_ms", "compact_ms",
+                       "compact_plain_ms", "bin_ms", "bin_plain_front_ms")}})
     for label, g in giant.items():
         tag = "int64_" + label.replace("/", "_")
         record["kernels"][0].update({

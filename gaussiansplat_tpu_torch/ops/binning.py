@@ -1,7 +1,9 @@
 """Static-capacity tile binning: compact -> expand -> sort -> segments.
 
 1. Per-gaussian tile rectangles from the per-axis extents, clipped to the
-   tile grid (or a strip of it), with an exact per-tile survivor mask.
+   tile grid (or a strip of it), with an exact per-tile survivor mask and
+   the pair count (the R kernel, ops/kernels/rects.py, or its plain
+   version `tile_rects_torch`).
 2. One compaction sort: gaussians that emit pairs first, by depth, ties by
    original index. The position in that order is the depth rank.
 3. The pair expansion (the K4 kernel, ops/kernels/expand.py) fills a
@@ -29,16 +31,12 @@ import torch
 from ..config import RasterConfig
 from .kernels.expand import expand_pairs_cuda, expand_pairs_torch, popcount
 from .kernels.gather import gather_pairs_cuda, gather_pairs_torch
+from .kernels.rects import MASK_TILES, tile_rects_cuda
 from .kernels.segreduce import segment_reduce_pairs_cuda, segment_reduce_pairs_torch
 from .projection import Projected
 from ..utils.logging import span
 
 I32 = torch.int32
-
-# Rects of at most this many tiles get an exact per-tile support test (a
-# 32-bit survivor mask, row-major over the rect); larger rects keep every
-# tile.
-MASK_TILES = 32
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
@@ -148,6 +146,45 @@ class CompactedRects:
     packed_keys: bool        # (tile << rank_bits | rank) fits 31 bits
 
 
+def tile_rects_torch(mean2d, conic, opacity, depth, radius_xy, valid, cfg,
+                     tiles_x: int, tiles_y: int, tile_row0: int,
+                     tile_rows: int, pack_bits, rect_dtype):
+    """Plain version of the R kernel (ops/kernels/rects.py): per gaussian
+    the packed strip-clipped rect (0 where it emits no pair), the survivor
+    mask (0 for a dense rect), the clamped pair count and the compaction
+    sort's depth key (+inf where it emits no pair)."""
+    xmin, ymin, xmax, ymax = tile_ranges(
+        mean2d, radius_xy, cfg.tile_size, tiles_x, tiles_y)
+    ymin = torch.clamp(ymin - tile_row0, 0, tile_rows)
+    ymax = torch.clamp(ymax - tile_row0, 0, tile_rows)
+    tw = xmax - xmin
+    th = ymax - ymin
+    counts = torch.clamp(tw * th, max=cfg.max_tiles_per_gaussian)
+    counts = torch.where(valid, counts, torch.zeros_like(counts))
+
+    if cfg.tile_cull and rect_dtype == I32:
+        mask = _tile_survivor_mask(
+            mean2d, conic, opacity, xmin, ymin, tw, th, tile_row0,
+            cfg.tile_size, cfg.sigma_radius, cfg.alpha_min,
+        )
+        maskable = (counts > 0) & (tw * th <= MASK_TILES)
+        surv = torch.clamp(popcount(mask), max=cfg.max_tiles_per_gaussian)
+        counts = torch.where(maskable, surv, counts)
+        mask = torch.where(maskable, mask, torch.zeros_like(mask))
+    else:
+        mask = torch.zeros_like(counts)
+
+    # Empties fold to +inf depth, so the compaction sort puts them last.
+    nonempty = counts > 0
+    depth_key = torch.where(nonempty, depth, torch.full_like(depth, math.inf))
+    by, bw, bh = pack_bits
+    rdt = rect_dtype
+    rect = ((((xmin.to(rdt) << by) | ymin.to(rdt)) << bw) | tw.to(rdt)) << bh \
+        | th.to(rdt)
+    rect = torch.where(nonempty, rect, torch.zeros_like(rect))
+    return rect, mask, counts, depth_key
+
+
 def compact_rects(
     proj: Projected,
     width: int,
@@ -156,8 +193,11 @@ def compact_rects(
     tile_row0: int = 0,
     tile_rows: Optional[int] = None,
     capacity: Optional[int] = None,
+    impl: str = "auto",
 ) -> CompactedRects:
-    """Rects, survivor masks, the compaction sort and the pair offsets."""
+    """Rects, survivor masks and pair counts (the R kernel, 'cuda', or its
+    plain version, 'torch'), the compaction sort and the pair offsets."""
+    impl = resolve_impl(impl, proj.mean2d.device)
     n = proj.mean2d.shape[0]
     if n < 1:
         raise ValueError("binning needs at least one gaussian slot")
@@ -168,17 +208,6 @@ def compact_rects(
     if capacity is None:
         capacity = cfg.pair_capacity(n)
 
-    mean2d = proj.mean2d.detach()
-    depth = proj.depth.detach()
-    xmin, ymin, xmax, ymax = tile_ranges(
-        mean2d, proj.radius_xy, cfg.tile_size, tiles_x, tiles_y)
-    ymin = torch.clamp(ymin - tile_row0, 0, tile_rows)
-    ymax = torch.clamp(ymax - tile_row0, 0, tile_rows)
-    tw = xmax - xmin
-    th = ymax - ymin
-    counts = torch.clamp(tw * th, max=cfg.max_tiles_per_gaussian)
-    counts = torch.where(proj.valid, counts, torch.zeros_like(counts))
-
     by = max(int(tile_rows).bit_length(), 1)
     bw = max(int(tiles_x).bit_length(), 1)
     bx, bh = bw, by
@@ -186,39 +215,20 @@ def compact_rects(
     if not rect_packable and bx + by + bw + bh > 63:
         raise ValueError(f"tile grid {tiles_x}x{tile_rows} too large to bin")
 
-    if cfg.tile_cull and rect_packable:
-        mask = _tile_survivor_mask(
-            mean2d, proj.conic.detach(), proj.opacity.detach(),
-            xmin, ymin, tw, th, tile_row0,
-            cfg.tile_size, cfg.sigma_radius, cfg.alpha_min,
-        )
-        maskable = (counts > 0) & (tw * th <= MASK_TILES)
-        surv = torch.clamp(popcount(mask), max=cfg.max_tiles_per_gaussian)
-        counts = torch.where(maskable, surv, counts)
-        mask = torch.where(maskable, mask, torch.zeros_like(mask))
-    else:
-        mask = torch.zeros_like(counts)
+    rects = tile_rects_cuda if impl == "cuda" else tile_rects_torch
+    rect, mask, counts, depth_key = rects(
+        proj.mean2d.detach(), proj.conic.detach(), proj.opacity.detach(),
+        proj.depth.detach(), proj.radius_xy, proj.valid, cfg, tiles_x,
+        tiles_y, tile_row0, tile_rows, (by, bw, bh),
+        I32 if rect_packable else torch.int64,
+    )
 
-    # Compaction + depth sort in one: empties fold to +inf depth and go to
-    # the tail; the stable sort breaks ties by original index.
-    nonempty = counts > 0
-    depth_key = torch.where(nonempty, depth, torch.full_like(depth, math.inf))
+    # Compaction + depth sort in one: the stable sort breaks ties by
+    # original index.
     order = torch.sort(depth_key, stable=True).indices
-
-    rdt = I32 if rect_packable else torch.int64
-    rect = ((((xmin.to(rdt) << by) | ymin.to(rdt)) << bw) | tw.to(rdt)) << bh \
-        | th.to(rdt)
-    rect = torch.where(nonempty, rect, torch.zeros_like(rect))
     rect_c = rect[order]
     mask_c = mask[order]
-    th_c = (rect_c & ((1 << bh) - 1)).to(I32)
-    tw_c = ((rect_c >> bh) & ((1 << bw) - 1)).to(I32)
-    counts_dense = torch.clamp(tw_c * th_c, max=cfg.max_tiles_per_gaussian)
-    counts_c = torch.where(
-        mask_c != 0,
-        torch.clamp(popcount(mask_c), max=cfg.max_tiles_per_gaussian),
-        counts_dense,
-    )
+    counts_c = counts[order]
 
     csum = torch.cumsum(counts_c, dim=0)       # int64
     offsets = csum - counts_c
@@ -363,7 +373,8 @@ def bin_gaussians(
     """Bin into the full tile grid, or into a strip of `tile_rows` tile rows
     starting at `tile_row0`."""
     impl = resolve_impl(impl, proj.mean2d.device)
-    c = compact_rects(proj, width, height, cfg, tile_row0, tile_rows, capacity)
+    c = compact_rects(proj, width, height, cfg, tile_row0, tile_rows, capacity,
+                      impl)
     return sort_pairs(c, expand_compacted(c, impl))
 
 

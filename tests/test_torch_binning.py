@@ -4,7 +4,10 @@ arrays, so float rounding in projection cannot move a tile boundary, and
 every integer field must equal JAX `bin_gaussians` up to `num_pairs`. The
 plain version of the pair gather must give the reference's gathered rows
 up to `num_pairs`, and the gather kernel's wrapper must refuse what the
-kernel does not take before anything is built."""
+kernel does not take before anything is built. The R kernel's plain
+per-gaussian twin (ops/kernels/rects.py) must give the plain version's
+rects, masks, counts and depth keys bit for bit, and its wrapper refuses
+what the kernel does not take."""
 
 import bisect
 import re
@@ -25,7 +28,13 @@ from gaussiansplat_tpu.ops import look_at as j_look_at
 from gaussiansplat_tpu.ops.binning import bin_gaussians as j_bin
 from gaussiansplat_tpu.ops.projection import project_gaussians as j_project
 from gaussiansplat_tpu_torch.config import RasterConfig
-from gaussiansplat_tpu_torch.ops.binning import bin_gaussians, compact_rects
+from gaussiansplat_tpu_torch.ops.binning import (
+    MASK_TILES,
+    bin_gaussians,
+    compact_rects,
+    tile_grid,
+    tile_rects_torch,
+)
 from gaussiansplat_tpu_torch.ops.kernels.build import CSRC_DIR
 from gaussiansplat_tpu_torch.ops.kernels.expand import (
     SLOTS_PER_BLOCK,
@@ -41,6 +50,13 @@ from gaussiansplat_tpu_torch.ops.kernels.gather import (
     gather_pairs_cuda,
     gather_pairs_torch,
 )
+from gaussiansplat_tpu_torch.ops.kernels.rects import (
+    RECTS,
+    THREADS,
+    tile_rects_cuda,
+    tile_rects_twin,
+)
+from gaussiansplat_tpu_torch.ops.projection import Projected
 
 FULL = ("depth_order", "tile_starts", "seg_offsets", "num_pairs", "overflow")
 PAIRS = ("sorted_ranks", "sorted_tiles", "sorted_pos")
@@ -337,3 +353,251 @@ def test_gather_pairs_cuda_refuses(case, match):
     with pytest.raises(ValueError, match=match):
         gather_pairs_cuda(**_gather_inputs(case))
     assert GATHER.launches == before and GATHER._lib is None
+
+
+# --- R: rects, survivor masks and pair counts ------------------------------
+
+RECT_W, RECT_H, RECT_TILE = 256, 128, 16   # a 16 x 8 grid of 16 px tiles
+
+
+def _fields(u, v, rx, ry, conic, opacity, depth, valid):
+    """The binning fields of a Projected, as float32 / int32 / bool."""
+    f32 = torch.float32
+    radius_xy = torch.as_tensor(np.stack([rx, ry], -1).astype(np.int32))
+    return Projected(
+        mean2d=torch.as_tensor(np.stack([u, v], -1), dtype=f32),
+        depth=torch.as_tensor(depth, dtype=f32),
+        conic=torch.as_tensor(conic, dtype=f32),
+        rgb=torch.zeros((len(u), 3)),
+        opacity=torch.as_tensor(opacity, dtype=f32),
+        radius=radius_xy.max(dim=1).values,
+        radius_xy=radius_xy,
+        valid=torch.as_tensor(valid, dtype=torch.bool),
+    )
+
+
+def _rect_case(name):
+    """(Projected, cfg, width, height, tile_row0, tile_rows) of a twin case:
+    200 gaussians of every size over the 16 x 8 grid, with conics of their
+    radii turned by a random correlation, and the case's edge on the first
+    60."""
+    g = np.random.default_rng(21)
+    n, k = 200, 60
+    amin = RasterConfig().alpha_min
+    if name == "projected":
+        return (port_projected(_jax_proj()), RasterConfig(), 160, 96, 0,
+                None)
+    u = g.uniform(-20, RECT_W + 20, n)
+    v = g.uniform(-20, RECT_H + 20, n)
+    rx = g.integers(1, 100, n)
+    ry = g.integers(1, 70, n)
+    sx, sy, rho = rx / 3.0, ry / 3.0, g.uniform(-0.95, 0.95, n)
+    det = sx * sx * sy * sy * (1 - rho * rho)
+    conic = np.stack([sy * sy / det, -rho * sx * sy / det, sx * sx / det], -1)
+    opacity = g.uniform(amin, 1.0, n)
+    depth = g.uniform(0.5, 10.0, n)
+    valid = g.random(n) < 0.9
+    cfg, row0, rows = RasterConfig(tile_size=RECT_TILE), 0, None
+    if name == "rect_32":          # 8 x 4 tiles, edges on tile borders
+        u[:k] = 16 * g.integers(3, 12, k) + 8
+        v[:k] = 16 * g.integers(1, 4, k) + 8
+        rx[:k], ry[:k], valid[:k] = 56, 24, True
+    elif name == "rect_33":        # 11 x 3 tiles: no mask
+        u[:k] = 16 * g.integers(5, 11, k)
+        v[:k] = 16 * g.integers(1, 7, k)
+        rx[:k], ry[:k], valid[:k] = 80, 16, True
+    elif name == "zero_radius":
+        rx[:k // 2] = 0
+        ry[k // 2:k] = 0
+        valid[:k] = True
+    elif name == "invalid":
+        valid[:k] = False
+    elif name == "alpha_min":
+        opacity[:k // 2] = np.float32(amin)
+        opacity[k // 2:k] = np.nextafter(np.float32(amin), np.float32(1))
+        valid[:k] = True
+    elif name == "degenerate_conic":
+        a = np.float32(1e-3)
+        conic[:k // 4] = [a, a * (1 - 1e-6), a]       # det ~ 0
+        conic[k // 4:k // 2] = [a, -a, a]            # det = 0
+        conic[k // 2:3 * k // 4] = 0.0               # zero conic
+        conic[3 * k // 4:k] = [1e30, 1e30, 1e30]     # inf in the products
+        valid[:k] = True
+    elif name == "knife_edge":
+        # q's minimum over tile (8, 3) at the cull's threshold, 9.01 / 0.999
+        # (opacity 1, so tau = sigma_radius^2 = 9), all three of its terms
+        # non-zero, the centre stepped by one float32 ulp a row: the test
+        # flips inside the run, where one rounding decides it.
+        s_, rho_ = 20.0, 0.1
+        d_ = s_ ** 4 * (1 - rho_ ** 2)
+        x0 = s_ * np.sqrt(9.01 / 0.999)
+        u[:k] = np.float32(128 - x0) + np.arange(-k // 2, k // 2) * 2.0 ** -17
+        v[:k] = 50.0
+        rx[:k], ry[:k] = 70, 4
+        conic[:k] = [s_ * s_ / d_, -rho_ * s_ * s_ / d_, s_ * s_ / d_]
+        opacity[:k], valid[:k] = 1.0, True
+    elif name == "strip":
+        row0, rows = 2, 3
+    elif name == "no_cull":
+        cfg = RasterConfig(tile_size=RECT_TILE, tile_cull=False)
+    proj = _fields(u, v, rx, ry, conic.astype(np.float32), opacity, depth,
+                   valid)
+    return proj, cfg, RECT_W, RECT_H, row0, rows
+
+
+def _pack_bits(cfg, width, height, rows):
+    """(tiles_x, tiles_y, tile_rows, (by, bw, bh), rect dtype) as
+    compact_rects sets them."""
+    tiles_x, tiles_y = tile_grid(width, height, cfg.tile_size)
+    rows = tiles_y if rows is None else rows
+    by = max(int(rows).bit_length(), 1)
+    bw = max(int(tiles_x).bit_length(), 1)
+    rdt = torch.int32 if 2 * (by + bw) <= 31 else torch.int64
+    return tiles_x, tiles_y, rows, (by, bw, by), rdt
+
+
+def _front(proj, cfg, width, height, row0, rows, fn):
+    """`fn` (tile_rects_torch or the twin) on a case, as compact_rects calls
+    it."""
+    tiles_x, tiles_y, rows, bits, rdt = _pack_bits(cfg, width, height, rows)
+    return fn(proj.mean2d, proj.conic, proj.opacity, proj.depth,
+              proj.radius_xy, proj.valid, cfg, tiles_x, tiles_y, row0, rows,
+              bits, rdt)
+
+
+def _tiles(rect, pack_bits):
+    """(tw, th) unpacked from packed rects."""
+    _, bw, bh = pack_bits
+    return ((rect >> bh) & ((1 << bw) - 1)).to(torch.int32), \
+        (rect & ((1 << bh) - 1)).to(torch.int32)
+
+
+@pytest.mark.parametrize("name", [
+    "projected", "random", "rect_32", "rect_33", "zero_radius", "invalid",
+    "alpha_min", "degenerate_conic", "knife_edge", "strip", "no_cull"])
+def test_rects_twin_matches_plain(name):
+    """The kernel's per-gaussian loop over only its rect's own tiles (the
+    plain twin) gives the plain version's (N, 32)-lane rects, survivor
+    masks, counts and depth keys bit for bit: rects of exactly 32 and 33
+    tiles, zero radii, invalid rows, opacity at alpha_min, degenerate and
+    zero conics, tiles at the cull's threshold to the ulp, a strip, the
+    cull off and a projected scene."""
+    case = _rect_case(name)
+    want = _front(*case, tile_rects_torch)
+    got = _front(*case, tile_rects_twin)
+    for what, a, b in zip(("rect", "mask", "count", "key"), got, want):
+        assert a.dtype == b.dtype, what
+        if what == "key":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), what
+    proj, cfg, width, height, _, rows = case
+    rect, mask, count, _ = want
+    tw, th = _tiles(rect, _pack_bits(cfg, width, height, rows)[3])
+    k = 60
+    assert int((count > 0).sum()) > 10
+    assert bool((mask != 0).any()) == (name != "no_cull")
+    if name == "rect_32":
+        assert bool((tw[:k] * th[:k] == MASK_TILES).all())
+        assert bool((mask[:k] != 0).all())
+    elif name == "rect_33":
+        assert bool((tw[:k] * th[:k] == MASK_TILES + 1).all())
+        assert bool((mask[:k] == 0).all()) and bool((count[:k] == 33).all())
+    elif name == "knife_edge":
+        assert len(set(mask[:k].tolist())) == 2
+    elif name in ("zero_radius", "invalid"):
+        assert bool((count[:k] == 0).all()) and bool((rect[:k] == 0).all())
+    elif name == "no_cull":
+        assert bool((mask == 0).all())
+
+
+@pytest.mark.parametrize("name,cfg,row0,rows", [
+    ("cull", RasterConfig(), 0, None),
+    ("no_cull", RasterConfig(tile_cull=False), 0, None),
+    ("strip", RasterConfig(), 1, 2),
+    ("strip_no_cull", RasterConfig(tile_cull=False), 1, 2),
+    ("clamped", RasterConfig(max_tiles_per_gaussian=3), 0, None),
+    ("int64", RasterConfig(tile_size=16), 0, None),
+], ids=lambda x: x if isinstance(x, str) else "")
+def test_sorted_counts_equal_the_recount(name, cfg, row0, rows):
+    """compact_rects takes each rank's pair count as counts[order], the
+    counts the front already made. Before that it unpacked tw and th from
+    the sorted rects and popcounted the sorted masks again; the two are
+    equal bit for bit with the cull on and off, on a strip (tile_row0 > 0),
+    with the count clamped, and on int64 rects, and so are the offsets."""
+    if name == "int64":
+        jp, *_ = _fake_proj(64, 8192, 8192, max_r=400)
+        width = height = 8192
+    else:
+        jp, width, height = _jax_proj(), 160, 96
+    proj = port_projected(jp)
+    rect, mask, counts, key = _front(proj, cfg, width, height, row0, rows,
+                                     tile_rects_torch)
+    assert rect.dtype == (torch.int64 if name == "int64" else torch.int32)
+    order = torch.sort(key, stable=True).indices
+    rect_c, mask_c = rect[order], mask[order]
+    tw_c, th_c = _tiles(rect_c, _pack_bits(cfg, width, height, rows)[3])
+    mt = cfg.max_tiles_per_gaussian
+    recount = torch.where(mask_c != 0, torch.clamp(popcount(mask_c), max=mt),
+                          torch.clamp(tw_c * th_c, max=mt))
+    assert torch.equal(counts[order], recount)
+    assert int(recount.sum()) > 0
+    assert bool((mask != 0).any()) == (cfg.tile_cull and name != "int64")
+    c = compact_rects(proj, width, height, cfg, row0, rows, capacity=4096)
+    off = torch.clamp(torch.cumsum(recount, 0) - recount, max=4096)
+    assert torch.equal(c.off_c, off.to(torch.int32))
+    assert int(c.num_pairs) + int(c.overflow) == int(recount.sum())
+
+
+def _rects_inputs(case):
+    """Small CPU inputs of R's wrapper, one of them broken by `case`."""
+    n = 8
+    t = dict(mean2d=torch.zeros((n, 2)), conic=torch.zeros((n, 3)),
+             opacity=torch.zeros((n,)), depth=torch.zeros((n,)),
+             radius_xy=torch.zeros((n, 2), dtype=torch.int32),
+             valid=torch.ones((n,), dtype=torch.bool))
+    if case == "mean_dtype":
+        t["mean2d"] = t["mean2d"].double()
+    elif case == "radius_dtype":
+        t["radius_xy"] = t["radius_xy"].long()
+    elif case == "valid_dtype":
+        t["valid"] = t["valid"].to(torch.uint8)
+    elif case == "conic_shape":
+        t["conic"] = torch.zeros((n, 2))
+    elif case == "depth_shape":
+        t["depth"] = torch.zeros((n + 1,))
+    elif case == "not_contiguous":
+        t["mean2d"] = torch.zeros((n, 4))[:, ::2]
+    return t
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA tensors"),
+    ("mean_dtype", "float32"),
+    ("radius_dtype", "int32"),
+    ("valid_dtype", "bool"),
+    ("conic_shape", "shape"),
+    ("depth_shape", "shape"),
+    ("not_contiguous", "contiguous"),
+    ("rect_dtype", "int32 or int64"),
+])
+def test_tile_rects_cuda_refuses(case, match):
+    """R's wrapper raises ValueError on CPU tensors, a wrong dtype or
+    shape, a row whose entries are not adjacent and another rect width,
+    before it builds or launches anything. A strided column of the payload
+    is taken as it is."""
+    before = RECTS.launches
+    rdt = torch.int16 if case == "rect_dtype" else torch.int32
+    with pytest.raises(ValueError, match=match):
+        tile_rects_cuda(**_rects_inputs(case), cfg=RasterConfig(), tiles_x=4,
+                        tiles_y=4, tile_row0=0, tile_rows=4,
+                        pack_bits=(3, 3, 3), rect_dtype=rdt)
+    assert RECTS.launches == before and RECTS._lib is None
+
+
+def test_rects_launch_shape_matches_the_kernel():
+    src = (CSRC_DIR / "rects.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    tiles = int(re.search(r"kMaskTiles = (\d+);", src).group(1))
+    assert (threads, tiles) == (THREADS, MASK_TILES)
+    assert 'extern "C" int gs_tile_rects_i64(' in src
+    assert "launch_rects<long long>" in src

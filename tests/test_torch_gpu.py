@@ -27,6 +27,10 @@ The pair gather writes the rows [0, num_pairs) bit for bit as its plain
 version (two index_selects) and leaves the rest as they were; a render
 whose gather output starts as NaN gives the index_select path's image,
 transmittance and gradients bit for bit, so no reader uses those rows.
+R (the binning's rects, survivor masks, counts and depth keys) is bit-equal
+to its plain version on the same CUDA tensors, and the whole binning with
+it to the plain binning, on the benchmark's scene at 1080p, 4K, a strip,
+the 8K int64 grid and a tile edge that is no power of two.
 """
 
 import numpy as np
@@ -41,6 +45,8 @@ from gaussiansplat_tpu_torch.ops.binning import (
     bin_gaussians,
     compact_rects,
     expand_compacted,
+    tile_grid,
+    tile_rects_torch,
 )
 from gaussiansplat_tpu_torch.ops.camera import look_at
 from gaussiansplat_tpu_torch.ops.kernels import ablate, backward, forward
@@ -65,6 +71,7 @@ from gaussiansplat_tpu_torch.ops.kernels.gather import (
     gather_pairs_cuda,
     gather_pairs_torch,
 )
+from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS, tile_rects_cuda
 from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     GROUPS,
     LONG_ROWS,
@@ -73,7 +80,11 @@ from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     segment_reduce_pairs_split,
     segment_reduce_pairs_torch,
 )
-from gaussiansplat_tpu_torch.ops.projection import make_payload, project_gaussians
+from gaussiansplat_tpu_torch.ops.projection import (
+    make_payload,
+    payload_to_projected,
+    project_gaussians,
+)
 from gaussiansplat_tpu_torch.render import render
 
 pytestmark = pytest.mark.gpu
@@ -695,8 +706,8 @@ def test_render_oracle_full_cuda_matches_cpu(cuda):
 
 def test_fit_on_the_card_launches_every_kernel(cuda):
     """20 iterations of Trainer.fit on the card with one densify pass: K1-K4
-    launch on every step, K4 and K1 on every eval render; overflow 0,
-    finite loss, the gaussian count grows."""
+    launch on every step, K4, K1 and R on every eval render, R on every
+    step; overflow 0, finite loss, the gaussian count grows."""
     from gaussiansplat_tpu_torch.config import RasterConfig, TrainConfig
     from gaussiansplat_tpu_torch.data import synthetic_scene
     from gaussiansplat_tpu_torch.train import Trainer
@@ -708,7 +719,7 @@ def test_fit_on_the_card_launches_every_kernel(cuda):
                       densify_end=10, densify_target_fraction=0.1,
                       sh_degree=1, sh_increase_every=5, eval_every=20,
                       log_every=5)
-    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE)
+    kernels = (EXPAND, FORWARD, BACKWARD, SEGREDUCE, RECTS)
     before = [k.launches for k in kernels]
     rows = []
     model, met = Trainer(raster_cfg=RasterConfig(), cfg=cfg).fit(
@@ -718,6 +729,7 @@ def test_fit_on_the_card_launches_every_kernel(cuda):
     counts = [k.launches - b for k, b in zip(kernels, before)]
     assert counts[0] >= 22 and counts[1] >= 22, counts
     assert counts[2] >= 20 and counts[3] >= 20, counts
+    assert counts[4] == counts[0], counts
     train = [m for _, m in rows if m.get("kind") != "eval"]
     assert all(m["overflow"] == 0 for m in train)
     assert sum(m.get("cloned", 0) + m.get("split", 0) for m in train) > 0
@@ -1124,3 +1136,84 @@ def test_spans_time_the_card_without_a_sync(cuda):
                         sorted(evs, key=lambda e: e.start_ns())):
             assert abs(x.t0_ns - e.start_ns()) < 1_000_000, name
             assert abs(x.t1_ns - e.end_ns()) < 1_000_000, name
+
+
+# The benchmark's scene (chip_smoke.bench_scene, seed 1) and its camera
+# (eye at z = -4, fx scaled with the width): (gaussians, width, height,
+# tile edge, first tile row, tile rows).
+RECT_CASES = {
+    "1080p": (3_000_000, 1920, 1080, 32, 0, None),
+    "4k": (3_000_000, 3840, 2160, 32, 0, None),
+    "strip_9_of_34": (3_000_000, 1920, 1080, 32, 9, 9),
+    "payload_columns": (1_000_000, 1920, 1080, 32, 0, None),
+    "8k_int64": (1_000_000, 7680, 4320, 32, 0, None),
+    "1080p_24px": (1_000_000, 1920, 1080, 24, 0, None),
+}
+
+
+def _rect_case(device, name):
+    """(Projected, cfg, width, height, tile_row0, tile_rows) of a case; the
+    payload case reads every field as a strided column of the payload."""
+    import chip_smoke as cs
+
+    n, width, height, tile, row0, rows = RECT_CASES[name]
+    fx = cs.FX * width / cs.WIDTH
+    cfg = RasterConfig(tile_size=tile)
+    model = cs.bench_scene(n, device, seed=1, draw_on_device=True)
+    cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx, fy=fx,
+                  width=width, height=height, device=device)
+    proj = _project(model, cam, cfg)
+    if name == "payload_columns":
+        proj = payload_to_projected(make_payload(proj))
+        assert not proj.mean2d.is_contiguous()
+    return proj, cfg, width, height, row0, rows
+
+
+@pytest.mark.parametrize("name", list(RECT_CASES))
+def test_rects_match_plain(cuda, name):
+    """R's rects, survivor masks, counts and depth keys are its plain
+    version's bit for bit on the same CUDA tensors, in one launch."""
+    proj, cfg, width, height, row0, rows = _rect_case(cuda, name)
+    tiles_x, tiles_y = tile_grid(width, height, cfg.tile_size)
+    rows = tiles_y if rows is None else rows
+    by = max(int(rows).bit_length(), 1)
+    bw = max(int(tiles_x).bit_length(), 1)
+    rdt = torch.int32 if 2 * (by + bw) <= 31 else torch.int64
+    assert (rdt == torch.int64) == (name == "8k_int64")
+    args = (proj.mean2d.detach(), proj.conic.detach(), proj.opacity.detach(),
+            proj.depth.detach(), proj.radius_xy, proj.valid, cfg, tiles_x,
+            tiles_y, row0, rows, (by, bw, by), rdt)
+    with torch.no_grad():
+        before = RECTS.launches
+        got = tile_rects_cuda(*args)
+        want = tile_rects_torch(*args)
+        torch.cuda.synchronize()
+    assert RECTS.launches == before + 1
+    for what, a, b in zip(("rect", "mask", "count", "key"), got, want):
+        assert a.dtype == b.dtype, what
+        if what == "key":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), what
+    count, mask = want[2], want[1]
+    assert int((count > 0).sum()) > 1000
+    assert bool((mask != 0).any()) == (rdt == torch.int32)
+
+
+@pytest.mark.parametrize("name", ["1080p", "4k", "strip_9_of_34", "8k_int64"])
+def test_binning_with_rects_matches_plain(cuda, name):
+    """The whole TileBinning of bin_gaussians with impl='cuda' (R, K4) is
+    the plain binning's (impl='torch') bit for bit, every field over its
+    whole length."""
+    proj, cfg, width, height, row0, rows = _rect_case(cuda, name)
+    kw = dict(tile_row0=row0, tile_rows=rows)
+    with torch.no_grad():
+        before = RECTS.launches
+        got = bin_gaussians(proj, width, height, cfg, impl="cuda", **kw)
+        assert RECTS.launches == before + 1
+        want = bin_gaussians(proj, width, height, cfg, impl="torch", **kw)
+        torch.cuda.synchronize()
+    assert RECTS.launches == before + 1
+    assert int(want.num_pairs) > 0
+    for f in ("sorted_ranks", "depth_order", "sorted_tiles", "tile_starts",
+              "num_pairs", "overflow", "sorted_pos", "seg_offsets"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
