@@ -154,6 +154,7 @@ no CUDA card is present.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -1483,6 +1484,7 @@ def _load_frame(path: str) -> np.ndarray:
 
 def small_reference_check():
     """A small scene: kernels against the plain versions, end to end."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
     from gaussiansplat_tpu_torch.ops.camera import look_at
     from gaussiansplat_tpu_torch.render import render
     from gaussiansplat_tpu_torch.models import random_model
@@ -1493,8 +1495,8 @@ def small_reference_check():
                   width=256, height=192, device="cuda")
     bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
     with torch.inference_mode():
-        a = render(model, cam, background=bg, impl="cuda")
-        b = render(model, cam, background=bg, impl="torch")
+        a = render(model, cam, RasterConfig(impl="cuda"), background=bg)
+        b = render(model, cam, RasterConfig(impl="torch"), background=bg)
     if int(a.num_pairs) != int(b.num_pairs) or int(a.overflow) != 0:
         raise AssertionError("small scene: pair counts differ")
     err = assert_budget(a.image, b.image, "small scene image")
@@ -1508,7 +1510,7 @@ def small_reference_check():
     for impl in ("cuda", "torch"):
         model.zero_grad(set_to_none=True)
         bg_g = bg.clone().requires_grad_(True)
-        out = render(model, cam, background=bg_g, impl=impl)
+        out = render(model, cam, RasterConfig(impl=impl), background=bg_g)
         loss = ((out.image - target) ** 2).mean() + 0.1 * out.transmittance.mean()
         loss.backward()
         grads[impl] = {k: p.grad.clone() for k, p in model.trainable().items()}
@@ -1600,7 +1602,8 @@ def giant_grids(model, kernels, card: str) -> dict:
                 profile(lambda: render(model, cam, cfg), f"{label} request",
                         card, top=10)
             if ts == 16:
-                want = render(model, cam, cfg, impl="torch")
+                want = render(model, cam,
+                              dataclasses.replace(cfg, impl="torch"))
                 err = assert_budget(out.image, want.image, f"{label} image")
                 assert_budget(out.transmittance, want.transmittance,
                               f"{label} transmittance")
@@ -1649,7 +1652,8 @@ def splats2d_phase(kernels, card: str) -> dict:
     grads, images = {}, {}
     for impl in ("cuda", "torch"):
         model.zero_grad(set_to_none=True)
-        out = render_splats2d(model, WIDTH, HEIGHT, cfg, impl=impl)
+        out = render_splats2d(model, WIDTH, HEIGHT,
+                              dataclasses.replace(cfg, impl=impl))
         ((out.image - target) ** 2).mean().backward()
         if int(out.overflow) != 0:
             raise AssertionError(f"2D splats overflow {int(out.overflow)}")

@@ -23,9 +23,9 @@ import torch
 from torch import nn
 
 from ..config import RasterConfig
-from ..ops.binning import bin_gaussians, resolve_impl
-from ..ops.projection import Projected, make_payload
-from ..ops.raster_dispatch import rasterize_payload
+from ..ops.projection import Projected
+from ..ops.raster_dispatch import RenderOutput, rasterize_projected
+from ..utils.logging import span
 
 PARAM_NAMES_2D = ("means2d", "log_scales", "thetas", "logit_opacities", "colors")
 
@@ -184,27 +184,16 @@ def render_splats2d(
     height: int,
     cfg: Optional[RasterConfig] = None,
     background: Optional[torch.Tensor] = None,
-    impl: Optional[str] = None,
-):
-    """Differentiable screen-space render of the model: a `RenderOutput`.
-    `impl` ('auto', 'cuda', 'torch') defaults to `cfg.impl`."""
-    from ..render import RenderOutput
-
+) -> RenderOutput:
+    """Differentiable screen-space render of the model on the backend
+    `cfg.impl`: a `RenderOutput`. Spans as `render()`'s."""
     cfg = cfg or RasterConfig()
     device = model.device
-    if background is None:
-        background = torch.zeros((3,), dtype=torch.float32, device=device)
-    impl = resolve_impl(impl if impl is not None else cfg.impl, device)
-
-    proj = project_splats2d(model, cfg, width, height)
-    binning = bin_gaussians(proj, width, height, cfg, impl=impl)
-    out = rasterize_payload(make_payload(proj), binning, background, width,
-                            height, cfg, impl)
-    return RenderOutput(
-        image=out.image,
-        transmittance=out.transmittance,
-        radii=proj.radius,
-        num_pairs=binning.num_pairs,
-        overflow=binning.overflow,
-        max_chunks_needed=out.max_chunks_needed,
-    )
+    with span("gs.render", device):
+        if background is None:
+            background = torch.zeros((3,), dtype=torch.float32, device=device)
+        with span("gs.project"):
+            proj = project_splats2d(model, cfg, width, height)
+        out, binning = rasterize_projected(proj, width, height, cfg,
+                                           background)
+    return RenderOutput.of(out, binning, proj.radius)

@@ -27,7 +27,6 @@ from .mesh import DATA_AXIS, TILE_AXIS, Mesh, make_mesh, mesh_from_config
 from .render import (
     make_tile_sharded_render,
     render_strip,
-    resolve_shard_impl,
     strip_bounds,
 )
 from .train import SSIM_HALO, make_sharded_train_step, pad_targets, stack_cameras
@@ -56,7 +55,6 @@ __all__ = [
     "pad_targets",
     "plan_gauss_sharded",
     "render_strip",
-    "resolve_shard_impl",
     "shard_model",
     "shard_model_2d",
     "stack_cameras",

@@ -32,18 +32,13 @@ import torch
 
 from ..config import RasterConfig
 from ..models.gaussians import GaussianModel
-from ..ops.binning import bin_gaussians
 from ..ops.camera import Camera
-from ..ops.projection import (
-    PAYLOAD_DIM,
-    make_payload,
-    payload_to_projected,
-    project_gaussians,
-)
-from ..ops.raster_dispatch import rasterize_payload
+from ..ops.projection import PAYLOAD_DIM, make_payload
+from ..ops.raster_dispatch import rasterize_projected
+from ..render import project_model
+from ..utils.logging import span
 from .gauss_shard import pack_to_destinations
 from .mesh import GAUSS_AXIS, AllToAll, Broadcast, Mesh, Permute, all_reduce
-from .render import resolve_shard_impl
 
 # The slab quantiles' log-depth histogram: 512 bins over [HIST_ZMIN,
 # HIST_ZMAX], ~2.7% of depth per bin. Slab bounds fall on bin edges, which
@@ -116,18 +111,17 @@ def render_depth_ring(
     send_cap: int,
     mesh: Mesh,
     axis_name: str = GAUSS_AXIS,
-    impl: str = "auto",
 ):
     """One rank's part: project the local shard, route the payloads to
     their depth slab's owner, rasterize the full grid for this rank's slab
-    over black, compose the (C, logT) partials around the ring and
-    broadcast rank 0's. Returns the replicated (image, trans, aux)."""
+    over black on the backend `cfg.impl`, compose the (C, logT) partials
+    around the ring and broadcast rank 0's. Returns the replicated (image,
+    trans, aux). Spans: `gs.project` (the projection and the payload), then
+    those of `rasterize_projected`."""
     group = mesh.group(axis_name)
-    proj = project_gaussians(
-        model.means, model.quats, model.log_scales, model.logit_opacities,
-        model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
-    )
-    payload = make_payload(proj)                        # (n_local, 16)
+    with span("gs.project"):
+        proj = project_model(model, camera, cfg, sh_degree)
+        payload = make_payload(proj)                    # (n_local, 16)
 
     depth = proj.depth.detach()
     valid = proj.valid & (proj.radius > 0)
@@ -138,13 +132,9 @@ def render_depth_ring(
     send, pack_overflow = pack_by_slab(payload, slab, n_slabs, send_cap)
     recv = AllToAll.apply(send, group)                  # (n_slabs, K, 16)
     flat = recv.reshape(n_slabs * send_cap, PAYLOAD_DIM)
-    binning = bin_gaussians(
-        payload_to_projected(flat), camera.width, camera.height, cfg,
-        capacity=cfg.pair_capacity(flat.shape[0]), impl=impl,
-    )
-    out = rasterize_payload(
-        flat, binning, torch.zeros_like(background), camera.width,
-        camera.height, cfg, impl,
+    out, binning = rasterize_projected(
+        None, camera.width, camera.height, cfg, torch.zeros_like(background),
+        payload=flat,
     )
     # Rendered over black: this slab's own partials.
     log_t = torch.log(torch.clamp(out.transmittance, min=1e-30))
@@ -158,11 +148,11 @@ def render_depth_ring(
     # partials v.
     acc = v
     if n_slabs & (n_slabs - 1) == 0:
-        span = 1
-        while span < n_slabs:
-            pairs = [(i, (i - span) % n_slabs) for i in range(n_slabs)]
+        hop = 1
+        while hop < n_slabs:
+            pairs = [(i, (i - hop) % n_slabs) for i in range(n_slabs)]
             acc = _compose(acc, Permute.apply(acc, pairs, group))
-            span *= 2
+            hop *= 2
     else:
         for k in range(1, n_slabs):
             pairs = [(i, (i - k) % n_slabs) for i in range(n_slabs)]
@@ -186,17 +176,21 @@ def make_depth_ring_render(
     height: int,
     sh_degree: int,
     send_cap: Optional[int] = None,
-    impl: Optional[str] = None,
 ):
     """Build `f(model, camera, background, with_aux=False) -> (image,
     trans[, aux])` over a model sharded on the mesh's gauss axis
     (`gauss_shard.shard_model`). The image is the same on every rank.
     aux: the local `radii`, the `overflow` summed and `max_chunks_needed`
-    maxed over the gauss group."""
+    maxed over the gauss group. The call is the span `gs.render`, with the
+    spans of `render_depth_ring` under it."""
     nd = mesh.axis_size(GAUSS_AXIS)
     group = mesh.group(GAUSS_AXIS)
 
     def f(model, camera, background, with_aux: bool = False):
+        with span("gs.render", model.device):
+            return _render(model, camera, background, with_aux)
+
+    def _render(model, camera, background, with_aux):
         if (camera.width, camera.height) != (width, height):
             raise ValueError(
                 f"camera is {camera.width}x{camera.height} but this renderer "
@@ -207,9 +201,7 @@ def make_depth_ring_render(
         cap = send_cap if send_cap is not None else max(
             2 * model.capacity // nd, 256)
         img, trans, aux = render_depth_ring(
-            model, camera, cfg, sh_degree, background, nd, cap, mesh,
-            impl=resolve_shard_impl(impl if impl is not None else cfg.impl,
-                                    model.device))
+            model, camera, cfg, sh_degree, background, nd, cap, mesh)
         if not with_aux:
             return img, trans
         return img, trans, dict(

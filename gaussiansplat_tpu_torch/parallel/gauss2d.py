@@ -55,7 +55,6 @@ def make_gauss2d_render(
     height: int,
     sh_degree: int,
     send_cap: Optional[int] = None,
-    impl: Optional[str] = None,
     send_fraction: float = 0.5,
 ):
     """Build `f(model, cameras, background) -> (images, aux)`: each data
@@ -67,7 +66,7 @@ def make_gauss2d_render(
     `make_gauss2d_train_step` does). aux: `overflow` summed over both
     axes."""
     view_fn = make_gauss_sharded_render(
-        mesh, cfg, width, height, sh_degree, send_cap=send_cap, impl=impl,
+        mesh, cfg, width, height, sh_degree, send_cap=send_cap,
         send_fraction=send_fraction)
     data_group = mesh.group(DATA_AXIS)
 
@@ -90,7 +89,6 @@ def make_gauss2d_train_step(
     height: int,
     sh_degree: int,
     send_cap: Optional[int] = None,
-    impl: Optional[str] = None,
     return_grads: bool = False,
 ):
     """Build `step(state, cameras, gts) -> (state, metrics)`: one camera
@@ -101,8 +99,7 @@ def make_gauss2d_train_step(
     axes) and `num_alive` (summed over the gauss group); with
     `return_grads`, this rank's summed gradient block."""
     view_fn = make_gauss_sharded_render(
-        mesh, raster_cfg, width, height, sh_degree, send_cap=send_cap,
-        impl=impl)
+        mesh, raster_cfg, width, height, sh_degree, send_cap=send_cap)
     ndata = mesh.data
     data_g, gauss_g = mesh.group(DATA_AXIS), mesh.group(GAUSS_AXIS)
 

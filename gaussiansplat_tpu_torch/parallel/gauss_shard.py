@@ -25,7 +25,6 @@ past it are counted (`pack_overflow`), as the binning counts its pairs.
 
 from __future__ import annotations
 
-import dataclasses
 import sys
 from typing import Optional
 
@@ -34,21 +33,14 @@ import torch.distributed as dist
 
 from ..config import RasterConfig
 from ..models.gaussians import GaussianModel
-from ..ops.binning import bin_gaussians
 from ..ops.camera import Camera
-from ..ops.projection import (
-    PAYLOAD_DIM,
-    PAYLOAD_MY,
-    PAYLOAD_RY,
-    make_payload,
-    payload_to_projected,
-    project_gaussians,
-)
-from ..ops.raster_dispatch import rasterize_payload
+from ..ops.projection import PAYLOAD_DIM, PAYLOAD_MY, PAYLOAD_RY, make_payload
+from ..ops.raster_dispatch import rasterize_projected
+from ..render import project_model
 from ..utils.logging import count, span
 from .capacity import arrival_pair_capacity, plan_gauss_sharded
 from .mesh import GAUSS_AXIS, AllToAll, Mesh, all_reduce, make_grid, off_card_bytes
-from .render import _GatherStrips, check_strips, resolve_shard_impl
+from .render import _GatherStrips, check_strips
 
 I32 = torch.int32
 
@@ -186,12 +178,12 @@ def render_gauss_sharded_strip(
     mesh: Mesh,
     axis_name: str = GAUSS_AXIS,
     mean2d_offset: Optional[torch.Tensor] = None,   # (n_local, 2)
-    impl: str = "auto",
 ):
     """One rank's part: project the local shard, exchange payloads over the
-    mesh's `axis_name` group, bin (K4) and rasterize (K1) this rank's strip,
-    tile rows [bounds[d], bounds[d + 1]) for gauss index d (`bounds`, the
-    n_strips + 1 tile-row bounds of `strip_bounds`). Returns (strip image,
+    mesh's `axis_name` group, bin (K4) and rasterize (K1) this rank's strip
+    on the backend `cfg.impl`, tile rows [bounds[d], bounds[d + 1]) for
+    gauss index d (`bounds`, the n_strips + 1 tile-row bounds of
+    `strip_bounds`). Returns (strip image,
     strip transmittance, aux); aux has the local radii and this rank's
     overflow counts. Spans (utils/logging.py): `gs.project`, `gs.pack`,
     `gs.exchange` (its backward `gs.exchange.bwd`), `gs.bin`, then the
@@ -204,12 +196,7 @@ def render_gauss_sharded_strip(
     row0, rows = bounds[d], bounds[d + 1] - bounds[d]
 
     with span("gs.project"):
-        proj = project_gaussians(
-            model.means, model.quats, model.log_scales, model.logit_opacities,
-            model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
-        )
-        if mean2d_offset is not None:
-            proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
+        proj = project_model(model, camera, cfg, sh_degree, mean2d_offset)
         payload = make_payload(proj)                    # (n_local, 16)
     n_local = payload.shape[0]
     with span("gs.pack"):
@@ -225,17 +212,10 @@ def render_gauss_sharded_strip(
         # (n_strips, K, 16): row block s goes to strip s's owner.
         recv = AllToAll.apply(send, group, "gs.exchange.bwd")
     flat = recv.reshape(n_strips * send_cap, PAYLOAD_DIM)
-    with span("gs.bin"):
-        binning = bin_gaussians(
-            payload_to_projected(flat), camera.width, camera.height, cfg,
-            tile_row0=row0, tile_rows=rows,
-            capacity=arrival_pair_capacity(cfg, n_strips, send_cap), impl=impl,
-        )
-        count("pairs", binning.num_pairs)
-        count("pair_slots", binning.sorted_ranks.shape[0])
-    out = rasterize_payload(
-        flat, binning, background, camera.width, camera.height, cfg, impl,
+    out, binning = rasterize_projected(
+        None, camera.width, camera.height, cfg, background, payload=flat,
         tile_row0=row0, tile_rows=rows,
+        capacity=arrival_pair_capacity(cfg, n_strips, send_cap),
     )
     aux = dict(
         radii=proj.radius,
@@ -257,7 +237,6 @@ def make_gauss_sharded_render(
     height: int,
     sh_degree: int,
     send_cap: Optional[int] = None,
-    impl: Optional[str] = None,
     send_fraction: float = 0.5,
     check_overflow: bool = False,
 ):
@@ -307,8 +286,6 @@ def make_gauss_sharded_render(
             model, camera, cfg, sh_degree, background, bounds,
             resolve_send_cap(model.capacity * nd), mesh,
             mean2d_offset=mean2d_offset,
-            impl=resolve_shard_impl(impl if impl is not None else cfg.impl,
-                                    model.device),
         )
         img = _GatherStrips.apply(img, group, index, px)[:height]
         trans = _GatherStrips.apply(trans, group, index, px)[:height]

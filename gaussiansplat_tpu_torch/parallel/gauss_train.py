@@ -43,7 +43,6 @@ def make_gauss_sharded_train_step(
     height: int,
     sh_degree: int,
     send_cap: Optional[int] = None,
-    impl: Optional[str] = None,
     return_grads: bool = False,
 ):
     """Build `step(state, camera, gt) -> (state, metrics)` over sharded
@@ -57,8 +56,7 @@ def make_gauss_sharded_train_step(
     (with `gs.raster.bwd`, `gs.gather.bwd`, `gs.exchange.bwd` and
     `gs.strips` inside) and `gs.optimizer`."""
     render_fn = make_gauss_sharded_render(
-        mesh, raster_cfg, width, height, sh_degree, send_cap=send_cap,
-        impl=impl)
+        mesh, raster_cfg, width, height, sh_degree, send_cap=send_cap)
     group = mesh.group(GAUSS_AXIS)
 
     def step(state: TrainState, camera: Camera, gt: torch.Tensor):

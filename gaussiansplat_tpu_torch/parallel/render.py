@@ -14,25 +14,18 @@ across the axis, the first strips are one tile row longer than the rest.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Optional
 
 import torch
 
 from ..config import RasterConfig
 from ..models.gaussians import GaussianModel
-from ..ops.binning import bin_gaussians, resolve_impl, tile_grid
+from ..ops.binning import tile_grid
 from ..ops.camera import Camera
-from ..ops.projection import make_payload, project_gaussians
-from ..ops.raster_dispatch import rasterize_payload
+from ..ops.raster_dispatch import rasterize_projected
+from ..render import project_model
 from ..utils.logging import span
 from .mesh import TILE_AXIS, Mesh, all_gather
-
-
-def resolve_shard_impl(impl: Optional[str], device: torch.device) -> str:
-    """The raster backend of the sharded renderers: 'auto' -> the kernels
-    for CUDA tensors, the plain versions for CPU tensors (`resolve_impl`)."""
-    return resolve_impl(impl if impl is not None else "auto", device)
 
 
 def strip_pair_capacity(cfg: RasterConfig, n: int, ntile: int) -> int:
@@ -50,27 +43,17 @@ def render_strip(
     tile_rows: int,
     pair_capacity: int,
     mean2d_offset: Optional[torch.Tensor] = None,
-    impl: str = "auto",
 ):
-    """Render `tile_rows` tile rows starting at tile row `tile_row0`.
-    Returns (strip image (tile_rows * ts, W, 3), strip transmittance, aux
-    dict with radii, num_pairs, overflow, max_chunks_needed).
-    Differentiable w.r.t. the model's parameters, `background` and
-    `mean2d_offset`."""
-    impl = resolve_impl(impl, model.device)
-    proj = project_gaussians(
-        model.means, model.quats, model.log_scales, model.logit_opacities,
-        model.sh, camera, cfg, sh_degree=sh_degree, alive=model.alive,
-    )
-    if mean2d_offset is not None:
-        proj = dataclasses.replace(proj, mean2d=proj.mean2d + mean2d_offset)
-    binning = bin_gaussians(
-        proj, camera.width, camera.height, cfg, tile_row0=tile_row0,
-        tile_rows=tile_rows, capacity=pair_capacity, impl=impl,
-    )
-    out = rasterize_payload(
-        make_payload(proj), binning, background, camera.width, camera.height,
-        cfg, impl, tile_row0=tile_row0, tile_rows=tile_rows,
+    """Render `tile_rows` tile rows starting at tile row `tile_row0`, on
+    the backend `cfg.impl`. Returns (strip image (tile_rows * ts, W, 3),
+    strip transmittance, aux dict with radii, num_pairs, overflow,
+    max_chunks_needed). Differentiable w.r.t. the model's parameters,
+    `background` and `mean2d_offset`. Spans as `render()`'s."""
+    with span("gs.project"):
+        proj = project_model(model, camera, cfg, sh_degree, mean2d_offset)
+    out, binning = rasterize_projected(
+        proj, camera.width, camera.height, cfg, background,
+        tile_row0=tile_row0, tile_rows=tile_rows, capacity=pair_capacity,
     )
     aux = dict(radii=proj.radius, num_pairs=binning.num_pairs,
                overflow=binning.overflow,
@@ -135,31 +118,29 @@ def make_tile_sharded_render(
     width: int,
     height: int,
     sh_degree: int,
-    impl: Optional[str] = None,
 ):
     """Build `f(model, camera, background) -> (image, transmittance)` that
     renders this rank's strip of the tile axis and gathers every strip of
     its tile group: the (height, width) frame on every rank, cropped from
-    the tile-padded one. `impl` ('auto', 'cuda', 'torch') defaults to
-    `cfg.impl`."""
+    the tile-padded one. The call is the span `gs.render`, with the spans
+    of `render_strip` and `gs.strips` under it."""
     ntile = mesh.tile
     bounds = check_strips(cfg, height, ntile)
     px = [b * cfg.tile_size for b in bounds]
     group = mesh.group(TILE_AXIS)
 
     def f(model: GaussianModel, camera: Camera, background: torch.Tensor):
-        if camera.device != model.device:
-            camera = camera.to(model.device)
-        i = mesh.tile_index
-        img, trans, _ = render_strip(
-            model, camera, cfg, sh_degree, background, bounds[i],
-            bounds[i + 1] - bounds[i],
-            strip_pair_capacity(cfg, model.capacity, ntile),
-            impl=resolve_shard_impl(impl if impl is not None else cfg.impl,
-                                    model.device),
-        )
-        img = _GatherStrips.apply(img, group, i, px)
-        trans = _GatherStrips.apply(trans, group, i, px)
-        return img[:height], trans[:height]
+        with span("gs.render", model.device):
+            if camera.device != model.device:
+                camera = camera.to(model.device)
+            i = mesh.tile_index
+            img, trans, _ = render_strip(
+                model, camera, cfg, sh_degree, background, bounds[i],
+                bounds[i + 1] - bounds[i],
+                strip_pair_capacity(cfg, model.capacity, ntile),
+            )
+            img = _GatherStrips.apply(img, group, i, px)
+            trans = _GatherStrips.apply(trans, group, i, px)
+            return img[:height], trans[:height]
 
     return f

@@ -24,7 +24,7 @@ PSNR averaged over the data axis; overflow summed over both.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -33,9 +33,10 @@ from ..config import RasterConfig, TrainConfig
 from ..ops.camera import Camera
 from ..train.loss import ssim_map
 from ..train.trainer import TrainState, set_position_lr
+from ..utils.logging import span
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh, all_gather, all_reduce
-from .render import (check_strips, render_strip, resolve_shard_impl,
-                     strip_bounds, strip_pair_capacity)
+from .render import (check_strips, render_strip, strip_bounds,
+                     strip_pair_capacity)
 
 # SSIM window radius: rows exchanged between neighbouring strips.
 SSIM_HALO = 5
@@ -137,7 +138,6 @@ def make_sharded_train_step(
     height: int,
     sh_degree: int,
     return_grads: bool = False,
-    impl: Optional[str] = None,
 ):
     """Build `step(state, cams, gts) -> (state, metrics)`.
 
@@ -146,7 +146,9 @@ def make_sharded_train_step(
     (`pad_targets`); each rank takes the view of its data index and the rows
     of its strip. The state is `train.init_train_state`'s, its model and
     optimizer the same on every rank. Metrics are 0-d tensors on the
-    model's device (with `return_grads`, also the summed gradients)."""
+    model's device (with `return_grads`, also the summed gradients). The
+    strip's render is the span `gs.render`, with `render_strip`'s spans
+    under it."""
     ndata, ntile = mesh.data, mesh.tile
     ts = raster_cfg.tile_size
     bounds = check_strips(raster_cfg, height, ntile)
@@ -175,12 +177,11 @@ def make_sharded_train_step(
         optimizer.zero_grad(set_to_none=True)
         offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
                              device=device, requires_grad=True)
-        img, _, aux = render_strip(
-            model, cam, raster_cfg, sh_degree, background, row0, rows,
-            strip_pair_capacity(raster_cfg, model.capacity, ntile),
-            mean2d_offset=offset,
-            impl=resolve_shard_impl(impl if impl is not None else raster_cfg.impl,
-                                    device))
+        with span("gs.render", device):
+            img, _, aux = render_strip(
+                model, cam, raster_cfg, sh_degree, background, row0, rows,
+                strip_pair_capacity(raster_cfg, model.capacity, ntile),
+                mean2d_offset=offset)
         # Rows past the true height (tile padding) are zero on both sides.
         img = torch.where(keep, img, torch.zeros_like(img))
         gt = torch.where(keep, gt, torch.zeros_like(gt))

@@ -30,6 +30,9 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "portbench" / "tests"))
 
 from tiny import make_root  # noqa: E402
+from test_torch_common import limit_torch_threads  # noqa: E402
+
+limit_torch_threads()
 
 SEED = 4294967311
 LIMIT_S = 150

@@ -7,6 +7,10 @@ tests/ runs them."""
 import importlib.util
 from pathlib import Path
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 _PATH = (Path(__file__).resolve().parents[1] / "portbench" / "tests"
          / "test_portbench_programs.py")
 _spec = importlib.util.spec_from_file_location("portbench_test_programs", _PATH)

@@ -62,6 +62,10 @@ from gaussiansplat_tpu_torch.ops.tile_raster import (
     rasterize_forward_torch,
 )
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 SIZE, N, CFG = 64, 512, dict(tile_size=16, chunk_size=128)
 TINY = 1e-20

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import np_, port_camera, port_model
+from test_torch_common import limit_torch_threads, np_, port_camera, port_model
 from test_torch_raster import CASES, _sorted_inputs
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
@@ -45,6 +45,8 @@ from gaussiansplat_tpu_torch.config import RasterConfig
 from gaussiansplat_tpu_torch.ops.projection import project_gaussians
 from gaussiansplat_tpu_torch.ops.tile_raster import rasterize_backward_torch
 from gaussiansplat_tpu_torch.render import render
+
+limit_torch_threads()
 
 PROJ_FLOAT = ("mean2d", "depth", "conic", "rgb", "opacity")
 PROJ_INPUTS = ("means", "quats", "log_scales", "logit_opacities", "sh")

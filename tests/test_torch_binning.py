@@ -19,7 +19,7 @@ import pytest
 import torch
 from hypothesis import example, given, settings, strategies as st
 
-from test_torch_common import np_, port_projected
+from test_torch_common import limit_torch_threads, np_, port_projected
 from test_binning_fallbacks import _fake_proj
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
@@ -57,6 +57,8 @@ from gaussiansplat_tpu_torch.ops.kernels.rects import (
     tile_rects_twin,
 )
 from gaussiansplat_tpu_torch.ops.projection import Projected
+
+limit_torch_threads()
 
 FULL = ("depth_order", "tile_starts", "seg_offsets", "num_pairs", "overflow")
 PAIRS = ("sorted_ranks", "sorted_tiles", "sorted_pos")

@@ -5,6 +5,10 @@ flags. No nvcc is needed: nothing is built."""
 from gaussiansplat_tpu_torch.ops.kernels.build import CSRC_DIR, CudaKernel
 from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 
 def _tree(root, name, header):
     d = root / name

@@ -12,6 +12,10 @@ from gaussiansplat_tpu_torch.models import random_model
 from gaussiansplat_tpu_torch.parallel import capacity as cap
 from gaussiansplat_tpu_torch.utils import comm_bytes as cb
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 
 def _model(n, sh_degree):
     return random_model(torch.Generator().manual_seed(0), n,

@@ -9,10 +9,13 @@ import os
 import numpy as np
 import pytest
 
+from test_torch_common import limit_torch_threads
 from test_torch_scenes import _write_nerf
 
 from gaussiansplat_tpu_torch import cli
 from gaussiansplat_tpu_torch.examples import train_benchmark
+
+limit_torch_threads()
 
 TINY = ["--scene", "synthetic", "--synthetic-n", "64", "--synthetic-size",
         "64", "--sh-degree", "1", "--device", "cpu"]

@@ -2,12 +2,25 @@
 same inputs, as numpy, from the JAX reference package to the PyTorch port
 (on the CPU)."""
 
+import os
+
 import numpy as np
 import torch
 
 from gaussiansplat_tpu_torch.models import from_numpy_params
 from gaussiansplat_tpu_torch.ops.camera import camera_from_numpy
 from gaussiansplat_tpu_torch.ops.projection import Projected
+
+
+def limit_torch_threads():
+    """Under pytest-xdist, give this worker its share of the CPU's cores as
+    torch intra-op threads (at least one): every worker runs beside the
+    others, and a pool of one thread a core in each of them makes them
+    fight over the cores. Outside xdist, torch's default stands."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+
 
 PROJ_FIELDS = ("mean2d", "depth", "conic", "rgb", "opacity", "radius",
                "radius_xy", "valid")

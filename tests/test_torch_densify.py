@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import np_, port_camera, port_model
+from test_torch_common import limit_torch_threads, np_, port_camera, port_model
 
 from gaussiansplat_tpu.config import TrainConfig as JTrainConfig
 from gaussiansplat_tpu.models import random_model as j_random_model
@@ -33,6 +33,8 @@ from gaussiansplat_tpu_torch.train import (
     make_opacity_reset_fn,
     make_train_step,
 )
+
+limit_torch_threads()
 
 KEY = jax.random.PRNGKey(1)
 INFO_KEYS = ("cloned", "split", "dropped")

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import port_camera, port_model
+from test_torch_common import limit_torch_threads, port_camera, port_model
+
+limit_torch_threads()
 
 N, SIZE = 192, 128
 

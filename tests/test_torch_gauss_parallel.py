@@ -192,6 +192,9 @@ if __name__ == "__main__":
 # ---------------------------------------------------------------------------
 
 import pytest  # noqa: E402
+from test_torch_common import limit_torch_threads  # noqa: E402
+
+limit_torch_threads()
 
 
 def _jax_cam(eye, fx, size):

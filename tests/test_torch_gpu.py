@@ -33,6 +33,8 @@ it to the plain binning, on the benchmark's scene at 1080p, 4K, a strip,
 the 8K int64 grid and a tile edge that is no power of two.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -335,8 +337,8 @@ def test_render_cuda_matches_torch(cuda):
     model, cam = _scene(cuda, 2048, 320, 240)
     bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
     with torch.no_grad():
-        a = render(model, cam, background=bg, impl="cuda")
-        b = render(model, cam, background=bg, impl="torch")
+        a = render(model, cam, RasterConfig(impl="cuda"), background=bg)
+        b = render(model, cam, RasterConfig(impl="torch"), background=bg)
     assert int(a.overflow) == 0 and int(a.num_pairs) == int(b.num_pairs)
     assert_images_close(a.image.cpu().numpy(), b.image.cpu().numpy())
     assert_images_close(a.transmittance.cpu().numpy(),
@@ -411,7 +413,7 @@ def test_backward_launches_each_kernel_once(cuda):
     kernels = (EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE)
     model, cam = _scene(cuda, 2048, 256, 192)
     counts = [k.launches for k in kernels]
-    out = render(model, cam, impl="cuda")
+    out = render(model, cam, RasterConfig(impl="cuda"))
     out.image.sum().backward()
     torch.cuda.synchronize()
     after = [k.launches for k in kernels]
@@ -499,7 +501,7 @@ def test_unwritten_gather_rows_are_never_read(cuda, monkeypatch):
         monkeypatch.setattr(binning, "gather_pairs_cuda", gather)
         model.zero_grad(set_to_none=True)
         bg = torch.tensor([0.3, 0.1, 0.6], device=cuda, requires_grad=True)
-        out = render(model, cam, background=bg, impl="cuda")
+        out = render(model, cam, RasterConfig(impl="cuda"), background=bg)
         loss = ((out.image - target) ** 2).mean() + 0.1 * out.transmittance.mean()
         loss.backward()
         torch.cuda.synchronize()
@@ -525,7 +527,7 @@ def test_render_grads_cuda_match_torch(cuda):
     for impl in ("cuda", "torch"):
         model.zero_grad(set_to_none=True)
         bg = torch.tensor([0.3, 0.1, 0.6], device=cuda, requires_grad=True)
-        out = render(model, cam, background=bg, impl=impl)
+        out = render(model, cam, RasterConfig(impl=impl), background=bg)
         loss = ((out.image - target) ** 2).mean() + 0.1 * out.transmittance.mean()
         loss.backward()
         grads[impl] = {k: p.grad.clone() for k, p in model.trainable().items()}
@@ -540,7 +542,7 @@ def test_render_grads_cuda_match_torch(cuda):
 def test_tile_size_limit(cuda):
     model, cam = _scene(cuda, 256, 128, 128)
     with torch.no_grad(), pytest.raises(ValueError, match="tile_size"):
-        render(model, cam, RasterConfig(tile_size=64), impl="cuda")
+        render(model, cam, RasterConfig(tile_size=64, impl="cuda"))
 
 
 @pytest.mark.parametrize(
@@ -799,8 +801,8 @@ def test_render_4k_16px_tiles_matches_plain(cuda):
     cfg = RasterConfig(tile_size=16, pairs_per_gaussian=64.0)
     model, cam = _scene(cuda, 20_000, 3840, 2160, fx=0.5 * 3840)
     with torch.no_grad():
-        a = render(model, cam, cfg, impl="cuda")
-        b = render(model, cam, cfg, impl="torch")
+        a = render(model, cam, dataclasses.replace(cfg, impl="cuda"))
+        b = render(model, cam, dataclasses.replace(cfg, impl="torch"))
     assert int(a.overflow) == 0 and int(a.num_pairs) == int(b.num_pairs) > 0
     assert_images_close(a.image.cpu().numpy(), b.image.cpu().numpy(),
                         atol=1e-4)
@@ -820,7 +822,7 @@ def test_splats2d_render_and_grads_match_plain(cuda):
     for impl in ("cuda", "torch"):
         model.zero_grad(set_to_none=True)
         counts = [k.launches for k in (EXPAND, FORWARD, BACKWARD, SEGREDUCE)]
-        out = render_splats2d(model, 320, 240, impl=impl)
+        out = render_splats2d(model, 320, 240, RasterConfig(impl=impl))
         ((out.image - target) ** 2).mean().backward()
         torch.cuda.synchronize()
         launched = [k.launches - c for k, c in

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import np_, port_camera, port_model
+from test_torch_common import limit_torch_threads, np_, port_camera, port_model
 from test_torch_train import _assert_params_close
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
@@ -40,6 +40,8 @@ from gaussiansplat_tpu_torch.utils import (
     restore_checkpoint,
     save_checkpoint,
 )
+
+limit_torch_threads()
 
 LOOP_CFG = dict(iterations=12, densify_start=4, densify_every=4,
                 densify_end=8, densify_target_fraction=0.25,

@@ -18,6 +18,10 @@ from gaussiansplat_tpu_torch.ops import camera as tcam
 from gaussiansplat_tpu_torch.ops import quaternion as tq
 from gaussiansplat_tpu_torch.ops import sh as tsh
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 ATOL = 1e-6
 
 

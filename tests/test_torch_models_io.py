@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import torch
 
-from test_torch_common import np_, port_model
+from test_torch_common import limit_torch_threads, np_, port_model
 
 from gaussiansplat_tpu.data.cameras import load_cameras_json as j_load_cams
 from gaussiansplat_tpu.data.cameras import save_cameras_json as j_save_cams
@@ -23,6 +23,8 @@ from gaussiansplat_tpu_torch.models import (
     scene_extent,
 )
 from gaussiansplat_tpu_torch.utils import export_ply, import_ply
+
+limit_torch_threads()
 
 PARAMS = ("means", "quats", "log_scales", "logit_opacities", "sh_dc", "sh_rest")
 

@@ -79,6 +79,10 @@ def worker(out_dir: str) -> int:
 if __name__ == "__main__":
     sys.exit(worker(sys.argv[1]))
 
+from test_torch_common import limit_torch_threads  # noqa: E402
+
+limit_torch_threads()
+
 
 def _free_port() -> int:
     s = socket.socket()

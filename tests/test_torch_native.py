@@ -16,6 +16,10 @@ from gaussiansplat_tpu_torch.data import native_loader
 from gaussiansplat_tpu_torch.data import ply as tply
 from gaussiansplat_tpu_torch.ops.kernels.build import BUILD_DIR
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 NATIVE_BUILD = Path(native_loader.NATIVE_DIR) / "build"
 
 

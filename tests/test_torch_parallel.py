@@ -122,6 +122,9 @@ if __name__ == "__main__":
 # ---------------------------------------------------------------------------
 
 import pytest  # noqa: E402
+from test_torch_common import limit_torch_threads  # noqa: E402
+
+limit_torch_threads()
 
 
 def _jax_setup(n, width, height, seed=0):

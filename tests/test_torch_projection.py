@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import assert_ints_close, np_, port_camera, port_model
+from test_torch_common import (
+    assert_ints_close,
+    limit_torch_threads,
+    np_,
+    port_camera,
+    port_model,
+)
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplat_tpu.models import random_model as j_random_model
@@ -25,6 +31,8 @@ from gaussiansplat_tpu_torch.ops.projection import (
     payload_to_projected,
     project_gaussians,
 )
+
+limit_torch_threads()
 
 FLOAT_FIELDS = ("mean2d", "depth", "conic", "rgb", "opacity")
 

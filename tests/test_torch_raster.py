@@ -24,7 +24,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from test_torch_common import np_
+from test_torch_common import limit_torch_threads, np_
 from imgcheck import assert_images_close
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
@@ -46,6 +46,8 @@ from gaussiansplat_tpu_torch.ops.tile_raster import (
     support_extent,
     tiles_to_image,
 )
+
+limit_torch_threads()
 
 
 def _sorted_inputs(n, width, height, cfg_kw, opacity=0.8, seed=0,

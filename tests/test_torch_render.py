@@ -21,7 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import assert_ints_close, np_, port_camera, port_model
+from test_torch_common import (
+    assert_ints_close,
+    limit_torch_threads,
+    np_,
+    port_camera,
+    port_model,
+)
 from imgcheck import assert_images_close
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
@@ -42,6 +48,8 @@ from gaussiansplat_tpu_torch.ops.kernels.segreduce import segment_reduce_pairs_c
 from gaussiansplat_tpu_torch.render import render
 from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
 from gaussiansplat_tpu_torch.utils import import_ply
+
+limit_torch_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "gaussiansplat_tpu_torch"
@@ -188,7 +196,7 @@ def test_cuda_paths_refuse_cpu_tensors():
     cam = look_at((0, 0, -6), (0, 0, 0), fx=100.0, fy=100.0, width=64,
                   height=64, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        render(m, cam, impl="cuda")
+        render(m, cam, RasterConfig(impl="cuda"))
     i32 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         expand_pairs_cuda(i32, i32, i32, i32[0], 512, 2, 4, 2, (1, 2, 1), True)
@@ -202,7 +210,50 @@ def test_cuda_paths_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         segment_reduce_pairs_cuda(torch.zeros((8, 16)), torch.zeros(3, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="impl"):
-        render(m, cam, impl="pallas")
+        render(m, cam, RasterConfig(impl="pallas"))
+
+
+def _render_paths():
+    """Each render path of the port, as a call on a CPU scene with a given
+    RasterConfig: `render`, a tile strip, the gaussian axis's strip and the
+    depth ring on a mesh of one rank, and 2D splats."""
+    from gaussiansplat_tpu_torch.models.splats2d import (
+        random_splats2d, render_splats2d)
+    from gaussiansplat_tpu_torch.parallel import make_gauss_mesh, render_strip
+    from gaussiansplat_tpu_torch.parallel.depth_ring import render_depth_ring
+    from gaussiansplat_tpu_torch.parallel.gauss_shard import (
+        render_gauss_sharded_strip)
+
+    g = torch.Generator().manual_seed(0)
+    m = random_model(g, 64, sh_degree=1, device="cpu")
+    splats = random_splats2d(g, 64, 64, 64, device="cpu")
+    cam = look_at((0, 0, -6), (0, 0, 0), fx=100.0, fy=100.0, width=64,
+                  height=64, device="cpu")
+    bg = torch.zeros(3)
+    mesh = make_gauss_mesh()
+    return {
+        "render": lambda cfg: render(m, cam, cfg),
+        "tile_strip": lambda cfg: render_strip(m, cam, cfg, 1, bg, 0, 2, 1024),
+        "gauss_strip": lambda cfg: render_gauss_sharded_strip(
+            m, cam, cfg, 1, bg, [0, 2], 64, mesh),
+        "depth_ring": lambda cfg: render_depth_ring(m, cam, cfg, 1, bg, 1, 64,
+                                                    mesh),
+        "splats2d": lambda cfg: render_splats2d(splats, 64, 64, cfg),
+    }
+
+
+@pytest.mark.parametrize("path", ["render", "tile_strip", "gauss_strip",
+                                  "depth_ring", "splats2d"])
+def test_every_render_path_follows_cfg_impl(path):
+    """`RasterConfig.impl` is the one backend switch of every render path:
+    'cuda' refuses CPU tensors, 'auto' and 'torch' render them alike."""
+    run = _render_paths()[path]
+    with pytest.raises(ValueError, match="CUDA"):
+        run(RasterConfig(impl="cuda"))
+    auto, plain = run(RasterConfig()), run(RasterConfig(impl="torch"))
+    auto = auto.image if hasattr(auto, "image") else auto[0]
+    plain = plain.image if hasattr(plain, "image") else plain[0]
+    assert bool(auto.any()) and torch.equal(auto, plain)
 
 
 def test_entry_points_default_to_cuda():

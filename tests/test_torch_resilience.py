@@ -21,7 +21,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from test_torch_common import port_camera, port_model
+from test_torch_common import limit_torch_threads, port_camera, port_model
 
 from gaussiansplat_tpu.models import random_model as j_random_model
 from gaussiansplat_tpu.ops import look_at as j_look_at
@@ -33,6 +33,8 @@ from gaussiansplat_tpu_torch.render import render
 from gaussiansplat_tpu_torch.train import Trainer
 from gaussiansplat_tpu_torch.utils import is_transient, run_resilient
 
+limit_torch_threads()
+
 RUNNERS = pytest.mark.parametrize("runner", [run_resilient, j_run_resilient],
                                   ids=["port", "reference"])
 
@@ -42,11 +44,11 @@ def test_render_and_grads_bitwise_deterministic():
     jcam = j_look_at(eye=(0.5, 0.3, -6.0), target=(0, 0, 0), fx=220.0,
                      fy=220.0, width=128, height=128)
     model, cam = port_model(jmodel), port_camera(jcam)
-    cfg = RasterConfig(tile_size=32, chunk_size=128)
+    cfg = RasterConfig(tile_size=32, chunk_size=128, impl="torch")
     params = list(model.trainable().values())
 
     def loss_and_grad():
-        img = render(model, cam, cfg, sh_degree=1, impl="torch").image
+        img = render(model, cam, cfg, sh_degree=1).image
         loss = torch.mean(img ** 2)
         return loss.detach(), img.detach(), torch.autograd.grad(loss, params)
 

@@ -26,7 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import np_, port_camera, port_model, port_projected
+from test_torch_common import (
+    limit_torch_threads,
+    np_,
+    port_camera,
+    port_model,
+    port_projected,
+)
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplat_tpu.data import benchmark as j_benchmark
@@ -46,6 +52,8 @@ from gaussiansplat_tpu_torch.models.gaussians import PARAM_NAMES
 from gaussiansplat_tpu_torch.ops.oracle import render_oracle, render_oracle_full
 from gaussiansplat_tpu_torch.render import render
 from gaussiansplat_tpu_torch.utils import image
+
+limit_torch_threads()
 
 JCFG = JRasterConfig(tile_size=32, chunk_size=128, impl="xla", packed=False)
 CFG = RasterConfig(tile_size=32, chunk_size=128)

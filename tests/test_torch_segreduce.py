@@ -22,7 +22,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from test_torch_common import np_
+from test_torch_common import limit_torch_threads, np_
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplat_tpu.models import random_model as j_random_model
@@ -41,6 +41,8 @@ from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     segment_reduce_pairs_split,
     segment_reduce_pairs_torch,
 )
+
+limit_torch_threads()
 
 BINNING_FIELDS = ("sorted_ranks", "depth_order", "sorted_tiles", "tile_starts",
                   "num_pairs", "overflow", "sorted_pos", "seg_offsets")

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from imgcheck import assert_images_close
-from test_torch_common import assert_ints_close, np_
+from test_torch_common import assert_ints_close, limit_torch_threads, np_
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplat_tpu.models.splats2d import project_splats2d as j_project
@@ -27,6 +27,8 @@ from gaussiansplat_tpu_torch.models import (
     render_splats2d,
     splats2d_from_numpy,
 )
+
+limit_torch_threads()
 
 JCFG = JRasterConfig(tile_size=32, chunk_size=128, impl="xla")
 CFG = RasterConfig(tile_size=32, chunk_size=128, impl="torch")

@@ -17,6 +17,10 @@ from gaussiansplat_tpu_torch.render import render
 from gaussiansplat_tpu_torch.train import init_train_state, make_train_step
 from gaussiansplat_tpu_torch.utils import logging as spans
 
+from test_torch_common import limit_torch_threads
+
+limit_torch_threads()
+
 RENDER_CHILDREN = {"gs.project", "gs.bin", "gs.gather", "gs.raster"}
 
 
@@ -103,6 +107,66 @@ def test_render_spans_and_counters():
     assert call.counter("pair_slots") == cfg.pair_capacity(model.capacity)
     # Host-only on the CPU: no device times to read.
     assert top.device_ms is None and call.self_ms("gs.gather") is None
+
+
+def _tile_strip_frame(model, cam, cfg):
+    from gaussiansplat_tpu_torch.parallel import make_mesh, make_tile_sharded_render
+    from gaussiansplat_tpu_torch.parallel.render import strip_pair_capacity
+
+    f = make_tile_sharded_render(make_mesh(1, 1), cfg, cam.width, cam.height, 1)
+    return (lambda: f(model, cam, torch.zeros(3)),
+            strip_pair_capacity(cfg, model.capacity, 1),
+            ["gs.project", "gs.bin", "gs.project", "gs.gather", "gs.raster",
+             "gs.strips", "gs.strips"])
+
+
+def _depth_ring_frame(model, cam, cfg):
+    from gaussiansplat_tpu_torch.parallel import (make_depth_ring_render,
+                                                  make_gauss_mesh)
+
+    send_cap = 256
+    f = make_depth_ring_render(make_gauss_mesh(), cfg, cam.width, cam.height,
+                               1, send_cap=send_cap)
+    # The payload is made with the projection, before the exchange.
+    return (lambda: f(model, cam, torch.zeros(3)),
+            cfg.pair_capacity(send_cap),
+            ["gs.project", "gs.bin", "gs.gather", "gs.raster"])
+
+
+def _splats2d_frame(model, cam, cfg):
+    from gaussiansplat_tpu_torch.models.splats2d import (random_splats2d,
+                                                         render_splats2d)
+
+    splats = random_splats2d(torch.Generator().manual_seed(1), 96, cam.width,
+                             cam.height, device="cpu")
+    return (lambda: render_splats2d(splats, cam.width, cam.height, cfg),
+            cfg.pair_capacity(splats.capacity),
+            ["gs.project", "gs.bin", "gs.project", "gs.gather", "gs.raster"])
+
+
+@pytest.mark.parametrize("path", [_tile_strip_frame, _depth_ring_frame,
+                                  _splats2d_frame],
+                         ids=["tile_strip", "depth_ring", "splats2d"])
+def test_other_render_paths_record_the_pipeline_spans(path):
+    """The tile strip, the depth ring and 2D splats run the render
+    pipeline of `render()`: under their `gs.render`, the binning's span
+    with its counters, then the gather's and the raster's."""
+    model, cam, _ = _scene()
+    cfg = RasterConfig()
+    frame, slots, names = path(model, cam, cfg)
+
+    def traced():
+        with torch.inference_mode():
+            return frame()
+
+    _profiled(traced)
+    (call,) = spans.calls()
+    top = call.spans[0]
+    assert top.name == "gs.render" and top.parent is None
+    assert [s.name for s in call.spans[1:]] == names
+    assert all(s.parent is top for s in call.spans[1:])
+    assert call.counter("pairs") > 0
+    assert call.counter("pair_slots") == slots
 
 
 def test_train_step_spans_share_the_call():

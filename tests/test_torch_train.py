@@ -34,7 +34,7 @@ import optax
 import pytest
 import torch
 
-from test_torch_common import np_, port_camera, port_model
+from test_torch_common import limit_torch_threads, np_, port_camera, port_model
 
 from gaussiansplat_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplat_tpu.config import TrainConfig as JTrainConfig
@@ -61,6 +61,8 @@ from gaussiansplat_tpu_torch.train import (
     ssim,
     ssim_map,
 )
+
+limit_torch_threads()
 
 
 def _scaled_close(got, want, atol, what=""):

@@ -181,6 +181,9 @@ import pytest  # noqa: E402
 
 from gaussiansplat_tpu_torch.parallel import strip_bounds  # noqa: E402
 from gaussiansplat_tpu_torch.parallel.render import check_strips  # noqa: E402
+from test_torch_common import limit_torch_threads  # noqa: E402
+
+limit_torch_threads()
 
 
 @pytest.mark.parametrize("tiles_y,n,want", [
