@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Probe: requires a CUDA card; prints `nvidia-smi` name and power limit.
-2. Build: compiles the six kernels (K4 expand, the pair gather, K1
-   forward, K2 backward, K3 segment reduce, R rects) from
+2. Build: compiles the seven kernels (K4 expand, the pair gather, K1
+   forward, K2 backward, K3 segment reduce, R rects, P projection) from
    gaussiansplat_tpu_torch/csrc
    (one nvcc per source, in parallel) and prints the build time and the
    ptxas register / shared-memory lines.
@@ -46,6 +46,13 @@
    bound (53 B a gaussian) and the plain version, and the whole compaction
    and binning timed with R and with the plain front. Alone on the card:
    `python3 -c "import chip_smoke as cs; cs.rects_phase(cs.card_line())"`.
+3e. P, the projection and raster payload in one pass, on the 1M scene
+   at 1920x1080 and the 3M scene at 1920x1080 and 3840x2160 (SH bands
+   1-3 drawn N(0, 0.05^2)): float channels within rtol/atol 1e-5 of the
+   plain projection and payload, the integer fields and valid on all but
+   0.1% of entries, each within 1; timed beside its bytes bound (314 B a
+   gaussian) and the plain version. Alone on the card:
+   `python3 -c "import chip_smoke as cs; cs.project_phase(cs.card_line())"`.
 4. Serve: the 1M-gaussian SH-3 benchmark scene, 8 orbit requests through
    `render()` after one warm-up, then the scene exported to PLY and 2 frames
    through the CLI; a profile of one request.
@@ -144,7 +151,8 @@ The launch counts are zeroed just before each determinism run, the
 serve, the train, the loop, the restart, the CLI-train, each giant frame's requests and the 2D steps (and in each
 rank around its render, steps and ring) and read just after; every kernel
 of the phase must have launched (K1-K4 and the gather on every training
-step, K4, the gather and K1 on every render).
+step, K4, the gather and K1 on every render, P on every served frame and
+in no training step).
 
 Every phase raises on failure. The last two lines are one JSON object with
 per-kernel numbers and `{"ok": true, "device": {...}}`. Exits non-zero when
@@ -816,6 +824,94 @@ def rects_phase(card: str) -> dict:
             cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
                           fy=fx, width=width, height=height, device=device)
             records[f"{width}x{height}"] = check_rects(model, cam, cfg, card)
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
+# Bytes P must move a gaussian at SH 3: means 12, quats 16, log_scales 12,
+# logit 4, sh_dc 12, sh_rest 180 and alive 1 read; the payload row 64,
+# radius 4, radius_xy 8 and valid 1 written.
+PROJECT_GAUSSIAN_BYTES = 314
+# P's frames: (gaussians, width, height); fx scaled with the width.
+PROJECT_FRAMES = ((1_000_000, WIDTH, HEIGHT), (3_000_000, WIDTH, HEIGHT),
+                  (3_000_000, 2 * WIDTH, 2 * HEIGHT))
+
+
+def check_project(model, cam, cfg, card: str) -> dict:
+    """P against the plain projection and payload on one frame (float
+    channels within rtol/atol 1e-5, the integer fields and valid on all but
+    0.1% of entries, each within 1), timed beside its bytes bound and the
+    plain version (project_gaussians with the model's SH concatenated,
+    then make_payload)."""
+    from gaussiansplat_tpu_torch.ops.kernels.project import project_cuda
+    from gaussiansplat_tpu_torch.ops.projection import (PAYLOAD_RADIUS,
+                                                        make_payload)
+
+    def kernel():
+        return project_cuda(model.means, model.quats, model.log_scales,
+                            model.logit_opacities, model.sh_dc,
+                            model.sh_rest, model.alive, cam, cfg, 3)
+
+    def plain():
+        proj = project(model, cam, cfg)
+        return proj, make_payload(proj)
+
+    n = model.capacity
+    got, radius, radius_xy, valid = kernel()
+    want_p, want = plain()
+    torch.cuda.synchronize()
+    d = (got[:, :PAYLOAD_RADIUS] - want[:, :PAYLOAD_RADIUS]).abs()
+    far = d > 1e-5 + 1e-5 * want[:, :PAYLOAD_RADIUS].abs()
+    if bool(far.any()):
+        raise AssertionError(f"P's float channels differ from the plain "
+                             f"version's at {int(far.sum())} entries "
+                             f"(max |diff| {float(d.max()):.3e})")
+    off = {}
+    for what, a, b in (("radius", radius, want_p.radius),
+                       ("radius_xy", radius_xy, want_p.radius_xy),
+                       ("valid", valid, want_p.valid)):
+        e = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        off[what] = int((e > 0).sum())
+        if int(e.max()) > 1 or off[what] > 1e-3 * e.numel():
+            raise AssertionError(f"P's {what} differs from the plain "
+                                 f"version's at {off[what]} entries")
+    visible = int(valid.sum())
+    del got, radius, radius_xy, valid, want_p, want, d, far
+    ms = cuda_ms(kernel, reps=50, warmup=3)
+    plain_ms = cuda_ms(plain, reps=3)
+    bound_ms = n * PROJECT_GAUSSIAN_BYTES / PEAK_BYTES_PER_S * 1e3
+    print(f"P project {cam.width}x{cam.height} n={n} ({visible} visible): "
+          f"floats within 1e-5, integer fields off at {off}; {ms:.4f} ms "
+          f"(CUDA events), bound {bound_ms:.4f} ms (bytes, "
+          f"{PROJECT_GAUSSIAN_BYTES} B a gaussian; {100 * bound_ms / ms:.1f}% "
+          f"of it), plain {plain_ms:.3f} ms | {card}")
+    return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms, off=off)
+
+
+def project_phase(card: str) -> dict:
+    """Phase 3e: `check_project` on each of PROJECT_FRAMES, SH bands 1-3
+    drawn N(0, 0.05^2) as the benchmark's scene draws them; the records
+    by frame ('1M 1920x1080', '3M 1920x1080', '3M 3840x2160')."""
+    from gaussiansplat_tpu_torch.config import RasterConfig
+    from gaussiansplat_tpu_torch.ops.camera import look_at
+
+    device = torch.device("cuda")
+    cfg = RasterConfig()
+    records, model = {}, None
+    with torch.no_grad():
+        for n, width, height in PROJECT_FRAMES:
+            if model is None or model.capacity != n:
+                model = bench_scene(n, device, seed=1, draw_on_device=True)
+                g = torch.Generator(device=device).manual_seed(3)
+                model.sh_rest.copy_(0.05 * torch.randn(
+                    model.sh_rest.shape, generator=g, device=device))
+            fx = FX * width / WIDTH
+            cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
+                          fy=fx, width=width, height=height, device=device)
+            records[f"{n // 1_000_000}M {width}x{height}"] = check_project(
+                model, cam, cfg, card)
             torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
@@ -2695,6 +2791,7 @@ def main() -> int:
     from gaussiansplat_tpu_torch.ops.kernels.expand import EXPAND
     from gaussiansplat_tpu_torch.ops.kernels.forward import FORWARD
     from gaussiansplat_tpu_torch.ops.kernels.gather import GATHER
+    from gaussiansplat_tpu_torch.ops.kernels.project import PROJECT
     from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS
     from gaussiansplat_tpu_torch.ops.kernels.segreduce import SEGREDUCE
     from gaussiansplat_tpu_torch.config import RasterConfig
@@ -2711,12 +2808,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = build_all([EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE, RECTS])
-    print(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
+    built = build_all([EXPAND, GATHER, FORWARD, BACKWARD, SEGREDUCE, RECTS,
+                       PROJECT])
+    print(f"built {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
           "(nvcc -gencode arch=compute_90a,code=sm_90a, one process each)")
-    for k in kernels:
+    for k in built:
         for line in ptxas_lines(k.build_log):
             print(f"  {k.name}: {line}")
+    # The kernels every training step launches (P runs only where no
+    # gradient is needed).
+    kernels = [k for k in built if k is not PROJECT]
 
     # 3. kernels against their plain versions
     from gaussiansplat_tpu_torch.ops.camera import look_at
@@ -2751,11 +2852,15 @@ def main() -> int:
     # 3d. R, the binning's rects, at the same shapes
     rects = rects_phase(card)
 
+    # 3e. P, the projection and payload, at 1M and 3M
+    projection = project_phase(card)
+
     # 4. serve: counts zeroed just before, read just after
-    for k in (EXPAND, GATHER, FORWARD, RECTS):
+    served = (EXPAND, GATHER, FORWARD, RECTS, PROJECT)
+    for k in served:
         k.launches = 0
     times, native = serve(model, cfg, card)
-    launches = {k.name: k.launches for k in (EXPAND, GATHER, FORWARD, RECTS)}
+    launches = {k.name: k.launches for k in served}
     print(f"launches during serving: {launches}")
     for name, count in launches.items():
         # One launch per frame: 1 warm-up + 8 requests + 2 CLI frames.
@@ -2769,8 +2874,14 @@ def main() -> int:
     profile_request(model, cfg, card)
     torch.cuda.empty_cache()
 
-    # 5. train: counts zeroed after the warm-up step, read after 5 steps
+    # 5. train: counts zeroed after the warm-up step, read after 5 steps;
+    # P launches once, for the target's render under no_grad, and never
+    # in a step (the steps need gradients)
+    PROJECT.launches = 0
     _, train_launches = train(model, bench_cam, cfg, kernels, card)
+    if PROJECT.launches != 1:
+        raise AssertionError(f"P launched {PROJECT.launches} times in the "
+                             "training phase, not once (the target)")
     del model
     torch.cuda.empty_cache()
 
@@ -2896,6 +3007,14 @@ def main() -> int:
         **{f"{key}_{frame}": rec[key] for frame, rec in rects.items()
            for key in ("ms", "bound_ms", "plain_ms", "compact_ms",
                        "compact_plain_ms", "bin_ms", "bin_plain_front_ms")}})
+    record["kernels"].append({
+        "name": "project", "route": "cuda",
+        "source": "gaussiansplat_tpu_torch/csrc/project.cu",
+        "replaces": None, "launches": launches["project"],
+        "bound_by": "bytes",
+        **{f"{key}_{frame.replace(' ', '_')}": rec[key]
+           for frame, rec in projection.items()
+           for key in ("ms", "bound_ms", "plain_ms")}})
     for label, g in giant.items():
         tag = "int64_" + label.replace("/", "_")
         record["kernels"][0].update({

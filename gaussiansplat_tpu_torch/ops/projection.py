@@ -175,11 +175,19 @@ def make_payload(proj: Projected) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def payload_to_projected(payload: torch.Tensor) -> Projected:
+def payload_to_projected(payload: torch.Tensor,
+                         radius: Optional[torch.Tensor] = None,
+                         radius_xy: Optional[torch.Tensor] = None,
+                         valid: Optional[torch.Tensor] = None) -> Projected:
     """A Projected view over a (M, 16) payload (inverse of make_payload for
-    the binning fields). Zero rows decode as radius 0, i.e. invalid."""
-    radius = payload[:, PAYLOAD_RADIUS].to(torch.int32)
-    radius_xy = payload[:, PAYLOAD_RX : PAYLOAD_RY + 1].to(torch.int32)
+    the binning fields): the float fields are column views of it. The
+    integer fields and `valid` are decoded from its channels unless given
+    (P writes them beside the payload); zero rows decode as radius 0, i.e.
+    invalid."""
+    if radius is None:
+        radius = payload[:, PAYLOAD_RADIUS].to(torch.int32)
+        radius_xy = payload[:, PAYLOAD_RX : PAYLOAD_RY + 1].to(torch.int32)
+        valid = radius > 0
     return Projected(
         mean2d=payload[:, PAYLOAD_MX : PAYLOAD_MY + 1],
         depth=payload[:, PAYLOAD_DEPTH],
@@ -188,5 +196,5 @@ def payload_to_projected(payload: torch.Tensor) -> Projected:
         opacity=payload[:, PAYLOAD_OP],
         radius=radius,
         radius_xy=radius_xy,
-        valid=radius > 0,
+        valid=valid,
     )

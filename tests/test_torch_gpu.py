@@ -31,6 +31,14 @@ R (the binning's rects, survivor masks, counts and depth keys) is bit-equal
 to its plain version on the same CUDA tensors, and the whole binning with
 it to the plain binning, on the benchmark's scene at 1080p, 4K, a strip,
 the 8K int64 grid and a tile edge that is no power of two.
+P (the projection and payload in one pass) agrees with the plain
+projection and `make_payload` on the benchmark's 3M scene at 1080p and 4K
+and on a small scene: float channels within rtol/atol 1e-5, the integer
+fields and `valid` on all but 0.1% of entries, each within 1. `render()`
+takes P under inference mode (counter `project_kernel` 1 a call) and
+gives the plain path's image; under grad it keeps the autograd path
+(counter 0, no launch), with gradients bit-equal to the projection then
+the back half composed by hand.
 """
 
 import dataclasses
@@ -73,6 +81,7 @@ from gaussiansplat_tpu_torch.ops.kernels.gather import (
     gather_pairs_cuda,
     gather_pairs_torch,
 )
+from gaussiansplat_tpu_torch.ops.kernels.project import PROJECT, project_cuda
 from gaussiansplat_tpu_torch.ops.kernels.rects import RECTS, tile_rects_cuda
 from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     GROUPS,
@@ -83,11 +92,15 @@ from gaussiansplat_tpu_torch.ops.kernels.segreduce import (
     segment_reduce_pairs_torch,
 )
 from gaussiansplat_tpu_torch.ops.projection import (
+    PAYLOAD_DIM,
+    PAYLOAD_RADIUS,
     make_payload,
     payload_to_projected,
     project_gaussians,
 )
-from gaussiansplat_tpu_torch.render import render
+from gaussiansplat_tpu_torch.ops.raster_dispatch import rasterize_projected
+from gaussiansplat_tpu_torch.render import project_model, render
+from test_torch_common import assert_ints_close
 
 pytestmark = pytest.mark.gpu
 
@@ -1219,3 +1232,136 @@ def test_binning_with_rects_matches_plain(cuda, name):
     for f in ("sorted_ranks", "depth_order", "sorted_tiles", "tile_starts",
               "num_pairs", "overflow", "sorted_pos", "seg_offsets"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# P's cases: (gaussians, width, height, SH degree evaluated); the 3M ones
+# are the benchmark's scene and camera as in RECT_CASES.
+PROJECT_CASES = {
+    "3m_1080p": (3_000_000, 1920, 1080, 3),
+    "3m_4k": (3_000_000, 3840, 2160, 3),
+    "small": (4096, 256, 192, 3),
+    "small_sh1": (4096, 256, 192, 1),
+}
+
+
+def _project_case(device, name):
+    n, width, height, deg = PROJECT_CASES[name]
+    if n < 1_000_000:
+        model, cam = _scene(device, n, width, height)
+    else:
+        import chip_smoke as cs
+
+        fx = cs.FX * width / cs.WIDTH
+        model = cs.bench_scene(n, device, seed=1, draw_on_device=True)
+        cam = look_at(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), fx=fx,
+                      fy=fx, width=width, height=height, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        # SH bands 1-3 as the benchmark's scene draws them.
+        model.sh_rest.copy_(0.05 * torch.randn(model.sh_rest.shape,
+                                               generator=g, device=device))
+    return model, cam, deg
+
+
+@pytest.mark.parametrize("name", list(PROJECT_CASES))
+def test_project_kernel_matches_plain(cuda, name):
+    """P against project_gaussians + make_payload on the same CUDA tensors,
+    in one launch: every float channel of every row within rtol/atol 1e-5,
+    radius, radius_xy and valid by the 0.1% / 1 rule, the payload's
+    integer channels equal to P's own integer fields, channels 14-15 0."""
+    model, cam, deg = _project_case(cuda, name)
+    cfg = RasterConfig()
+    with torch.no_grad():
+        before = PROJECT.launches
+        got, radius, radius_xy, valid = project_cuda(
+            model.means, model.quats, model.log_scales,
+            model.logit_opacities, model.sh_dc, model.sh_rest, model.alive,
+            cam, cfg, deg)
+        want_p = project_gaussians(model.means, model.quats, model.log_scales,
+                                   model.logit_opacities, model.sh, cam, cfg,
+                                   sh_degree=deg, alive=model.alive)
+        want = make_payload(want_p)
+        torch.cuda.synchronize()
+    assert PROJECT.launches == before + 1
+    assert got.shape == want.shape == (model.capacity, PAYLOAD_DIM)
+    torch.testing.assert_close(got[:, :PAYLOAD_RADIUS],
+                               want[:, :PAYLOAD_RADIUS], rtol=1e-5, atol=1e-5)
+    for a, b in ((radius, want_p.radius), (radius_xy, want_p.radius_xy),
+                 (valid, want_p.valid)):
+        assert a.dtype == b.dtype
+        assert_ints_close(a.cpu().numpy(), b.cpu().numpy())
+    ints = torch.cat([radius[:, None], radius_xy], dim=1).to(torch.float32)
+    assert torch.equal(got[:, PAYLOAD_RADIUS:PAYLOAD_DIM - 2], ints)
+    assert not got[:, PAYLOAD_DIM - 2:].any()
+    assert int(valid.sum()) > model.capacity // 10
+
+
+def _frames_counted(frame, calls: int):
+    """Launches of P and the counter `project_kernel` of each of `calls`
+    frames, recorded under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussiansplat_tpu_torch.utils import logging as spans
+
+    spans.RECORDER.reset()
+    before = PROJECT.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        outs = [frame() for _ in range(calls)]
+    torch.cuda.synchronize()
+    counters = [c.counter("project_kernel") for c in spans.calls("gs.render")]
+    spans.RECORDER.reset()
+    return outs, PROJECT.launches - before, counters
+
+
+def test_render_inference_takes_the_kernel(cuda):
+    """render() under torch.inference_mode() launches P once a call
+    (counter 1 a call) and gives the plain path's image and
+    transmittance (impl='torch'), through the image budget."""
+    model, cam, _ = _project_case(cuda, "small")
+    cfg = RasterConfig()
+
+    def frame():
+        with torch.inference_mode():
+            return render(model, cam, cfg)
+
+    outs, launches, counters = _frames_counted(frame, 2)
+    assert launches == 2 and counters == [1, 1]
+    with torch.inference_mode():
+        want = render(model, cam, RasterConfig(impl="torch"))
+    for got in outs:
+        assert int(got.overflow) == 0
+        assert int(got.num_pairs) == int(want.num_pairs) > 0
+        assert_images_close(got.image.cpu().numpy(), want.image.cpu().numpy())
+        assert_images_close(got.transmittance.cpu().numpy(),
+                            want.transmittance.cpu().numpy())
+
+
+def test_render_under_grad_keeps_the_autograd_path(cuda):
+    """render() with gradients needed launches no P (counter 0) and its
+    gradients equal, bit for bit, those of project_model then
+    rasterize_projected with the payload made after the binning."""
+    model, cam, _ = _project_case(cuda, "small")
+    cfg = RasterConfig()
+    bg = torch.zeros((3,), device=cuda)
+
+    def grads(frame):
+        model.zero_grad(set_to_none=True)
+        out = frame()
+        (out[0].sum() + out[1].sum()).backward()
+        return {k: p.grad.clone() for k, p in model.trainable().items()}
+
+    def through_render():
+        out = render(model, cam, cfg, background=bg)
+        return out.image, out.transmittance
+
+    def by_hand():
+        proj = project_model(model, cam, cfg, model.sh_degree)
+        out, _ = rasterize_projected(proj, cam.width, cam.height, cfg, bg)
+        return out.image, out.transmittance
+
+    (got,), launches, counters = _frames_counted(
+        lambda: grads(through_render), 1)
+    assert launches == 0 and counters == [0]
+    want = grads(by_hand)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -105,6 +105,8 @@ def test_render_spans_and_counters():
     assert all(s.parent is top and s.call is call for s in call.spans[1:])
     assert call.counter("pairs") == int(out.num_pairs) > 0
     assert call.counter("pair_slots") == cfg.pair_capacity(model.capacity)
+    # P (the projection kernel) runs on the card only.
+    assert call.counter("project_kernel") == 0
     # Host-only on the CPU: no device times to read.
     assert top.device_ms is None and call.self_ms("gs.gather") is None
 
